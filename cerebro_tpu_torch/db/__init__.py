@@ -1,0 +1,1 @@
+"""db of the PyTorch port (counterpart of cerebro_tpu.db)."""

@@ -1,0 +1,110 @@
+"""Device-resident descriptor database as a true ring (counterpart of
+cerebro_tpu/db/descriptors.py).
+
+The reference's equivalent is a statically preallocated Eigen matrix of
+29 000 descriptor columns guarded by a mutex, appended on each tick and
+hard-capped (src/Cerebro.cpp:946,1002-1013). Here the DB holds a
+fixed-capacity ``(N, D)`` device tensor plus per-row **global ids** and a
+cumulative ``total``; past capacity the buffer wraps: the oldest rows are
+evicted, never the newest.
+
+Masking model: every search masks by ``global_ids[row] < limit`` instead of
+``row < limit``. Pre-wrap the two are identical (gid == row); post-wrap the
+gid comparison stays correct because ids are monotone in time regardless of
+where the ring put them. Rows never written (or written by the invalid tail
+of a partial batch) carry ``GID_INVALID`` = int32 max, which no limit ever
+exceeds.
+
+Unlike the JAX version, which returns a new pytree per append, ``append``
+writes the ring in place. ``count`` and ``total`` are host integers: the
+host decides how many rows each batch holds, so reading them never waits on
+the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Rows carrying this id are unmatchable: limits are at most `total`, which
+# is always far below int32 max.
+GID_INVALID = 2**31 - 1
+
+
+@dataclasses.dataclass
+class DescriptorDB:
+    vectors: torch.Tensor  # (capacity, D) bf16 or f32 unit descriptors
+    global_ids: torch.Tensor  # (capacity,) int32, GID_INVALID if empty
+    count: int = 0  # number of valid rows (= min(total, capacity))
+    total: int = 0  # cumulative appended entries (monotone)
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.vectors.shape[1]
+
+
+def create(
+    capacity: int, dim: int, dtype=torch.bfloat16, device="cuda"
+) -> DescriptorDB:
+    return DescriptorDB(
+        vectors=torch.zeros((capacity, dim), dtype=dtype, device=device),
+        global_ids=torch.full(
+            (capacity,), GID_INVALID, dtype=torch.int32, device=device
+        ),
+    )
+
+
+def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
+    """Append the first ``n_new`` rows of ``descs`` (B, D) at the ring head,
+    in place; returns ``db``.
+
+    Rows of the batch past ``n_new`` are written with GID_INVALID so they
+    stay unmatchable until real entries overwrite them.
+    """
+    B = descs.shape[0]
+    cap = db.capacity
+    if B > cap:
+        raise ValueError(f"batch {B} exceeds DB capacity {cap}")
+    if not 0 <= n_new <= B:
+        raise ValueError(f"n_new={n_new} outside [0, {B}]")
+    dev = db.vectors.device
+    j = torch.arange(B, dtype=torch.int64, device=dev)
+    rows = (db.total + j) % cap
+    gids = torch.where(
+        j < n_new, db.total + j, torch.full_like(j, GID_INVALID)
+    ).to(torch.int32)
+    # in place: the ring rows and their ids are overwritten at the head
+    db.vectors[rows] = descs.to(device=dev, dtype=db.vectors.dtype)
+    db.global_ids[rows] = gids
+    db.total += int(n_new)
+    db.count = min(db.total, cap)
+    return db
+
+
+def query_limits(
+    db: DescriptorDB, global_idx: torch.Tensor, exclusion: int
+) -> torch.Tensor:
+    """Per-query exclusive bound on matchable GLOBAL ids: query with global
+    index g may match entries with id < g - exclusion (ref src/Cerebro.cpp:914
+    ``l - 50``), clipped to what has actually been appended."""
+    return torch.clamp(global_idx.to(torch.int32) - exclusion, 0, db.total).to(
+        torch.int32
+    )
+
+
+def from_rows(vectors: torch.Tensor, n_valid: int | None = None) -> DescriptorDB:
+    """Build a pre-wrap DB directly from a row matrix: row i is entry i.
+    Rows >= n_valid are unmatchable. Convenience for benches/tests."""
+    n = vectors.shape[0]
+    if n_valid is None:
+        n_valid = n
+    ar = torch.arange(n, dtype=torch.int32, device=vectors.device)
+    gids = torch.where(ar < n_valid, ar, torch.full_like(ar, GID_INVALID))
+    return DescriptorDB(
+        vectors=vectors, global_ids=gids, count=min(n_valid, n), total=n_valid
+    )

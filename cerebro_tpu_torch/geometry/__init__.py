@@ -1,0 +1,1 @@
+"""geometry of the PyTorch port (counterpart of cerebro_tpu.geometry)."""

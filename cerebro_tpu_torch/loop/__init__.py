@@ -1,0 +1,1 @@
+"""loop of the PyTorch port (counterpart of cerebro_tpu.loop)."""

@@ -1,0 +1,124 @@
+"""Build and bind the hand-written CUDA kernels in ``cerebro_tpu_torch/csrc``.
+
+Each ``.cu`` file exports a plain C launch function. It is compiled with
+``nvcc`` for ``sm_90a`` into ``cerebro_tpu_torch/_build/`` on first use (the
+file name carries a hash of the source, so an edited source is rebuilt) and
+loaded with ``ctypes``. Nothing is compiled or loaded at import time: this
+module imports on machines without ``nvcc`` or a GPU, where the wrappers
+only ever take their plain PyTorch versions.
+
+A launch function runs on the caller's stream (``torch.cuda.current_stream``),
+allocates nothing, and returns ``cudaGetLastError()``; ``Kernel.launch``
+raises if that is not zero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+class Kernel:
+    """One CUDA source file and its C launch functions.
+
+    ``functions`` maps each exported name to its ctypes argument types
+    (``c_void_p`` for every pointer and the stream, ``c_int`` for ints).
+    ``launches`` counts the launches made through ``launch``; callers that
+    check which kernels a run went through reset and read it."""
+
+    def __init__(self, source: str, functions: Dict[str, Sequence]):
+        self.source = CSRC / source
+        self.functions = dict(functions)
+        self.launches = 0
+        self.build_log = ""
+        self._lib = None
+        self._lock = threading.Lock()
+
+    @property
+    def library(self) -> Path:
+        digest = hashlib.sha1(self.source.read_bytes()).hexdigest()[:12]
+        return BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
+
+    def start_build(self):
+        """Start ``nvcc`` for this source; returns (process, temp output), or
+        None when the library is already built."""
+        out = self.library
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        return proc, tmp
+
+    def finish_build(self, started):
+        if started is None:
+            return
+        proc, tmp = started
+        log, _ = proc.communicate()
+        self.build_log = log
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source.name}:\n{log}")
+        os.replace(tmp, self.library)
+
+    def build(self):
+        self.finish_build(self.start_build())
+
+    def _load(self):
+        with self._lock:
+            if self._lib is None:
+                self.build()
+                lib = ctypes.CDLL(str(self.library))
+                for name, argtypes in self.functions.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+        return self._lib
+
+    def launch(self, name: str, *args):
+        """Call launch function ``name`` with ``args`` followed by the current
+        CUDA stream; raise if the launch reports an error."""
+        fn = getattr(self._load(), name)
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.source.name}:{name} failed with CUDA error {err}"
+            )
+        self.launches += 1
+
+
+def build_all(kernels: Sequence[Kernel]) -> float:
+    """Build every kernel's library with one ``nvcc`` each, all running at
+    once. Returns the wall seconds the builds took."""
+    t0 = time.perf_counter()
+    started = [(k, k.start_build()) for k in kernels]
+    for k, s in started:
+        k.finish_build(s)
+    return time.perf_counter() - t0

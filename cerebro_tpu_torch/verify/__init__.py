@@ -1,0 +1,1 @@
+"""verify of the PyTorch port (counterpart of cerebro_tpu.verify)."""

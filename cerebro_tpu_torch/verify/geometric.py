@@ -1,0 +1,205 @@
+"""Geometric verification of loop candidates, tier 1 (counterpart of
+cerebro_tpu/verify/geometric.py for stereo pairs and the steerable matcher).
+
+Re-implements the reference's ``loopcandiate_consumer_thread`` +
+``process_loop_candidate_imagepair_consistent_pose_compute``
+(src/Cerebro.cpp:1185-2213) and
+``ProcessedLoopCandidate::makeLoopEdgeMsgWithConsistencyCheck``
+(src/ProcessedLoopCandidate.cpp:40-116):
+
+  stereo depth for both frames         (geometry/stereo.py, kernel K3)
+  point matches between the two lefts  (ops/features.py, steerable + GMS)
+  reject if matches < min_matches_attempt            (ref :1487  >=150)
+  pose three independent ways, all RANSAC:
+    Option A:  PnP( 3D of a -> 2D of b )             (ref :1509-1529)
+    Option B:  PnP( 3D of b -> 2D of a ), inverted   (ref :1563-1586)
+    Option C:  3D-3D Umeyama ICP                     (ref :1620-1643)
+  consistency: pairwise delta-poses within 5 deg / 0.2 m   (ref :77-87)
+  accept iff consistent AND matches > min_matches_accept   (ref :112 >800)
+  final pose := Option A, confidence := max goodness       (ref :114-116)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from cerebro_tpu_torch.config import VerifyConfig
+from cerebro_tpu_torch.geometry import se3, stereo
+from cerebro_tpu_torch.ops import features, ransac
+
+
+@dataclasses.dataclass(frozen=True)
+class VerifiedLoop:
+    """ProcessedLoopCandidate equivalent (src/ProcessedLoopCandidate.h).
+    ``verify_pair_batch`` returns every field with a leading pair axis."""
+
+    T_b_a: torch.Tensor  # (4,4) final relative pose (Option A)
+    poses: torch.Tensor  # (3,4,4) options A, B(inverted), C
+    option_success: torch.Tensor  # (3,) bool per-option RANSAC success
+    confidences: torch.Tensor  # (3,) float32 inlier ratios ("goodness")
+    n_matches: torch.Tensor  # () int32 GMS match count
+    consistent: torch.Tensor  # () bool 3-way pose agreement
+    accepted: torch.Tensor  # () bool final gate
+
+    @property
+    def confidence(self) -> torch.Tensor:
+        return self.confidences.amax(dim=-1)
+
+
+def _check_tier1(cfg: VerifyConfig):
+    if cfg.matcher != "steerable":
+        raise NotImplementedError(
+            "only the steerable (tier-1) matcher is ported; the gather matcher "
+            "is ROADMAP Queue 1 item 3, the tier-2 gather matcher and the cascade"
+        )
+
+
+def _gather_3d(pts: torch.Tensor, ok: torch.Tensor, xy: torch.Tensor):
+    """3D point + validity at (rounded) pixel coords."""
+    x = torch.clamp(torch.round(xy[:, 0]).to(torch.int64), 0, pts.shape[1] - 1)
+    y = torch.clamp(torch.round(xy[:, 1]).to(torch.int64), 0, pts.shape[0] - 1)
+    return pts[y, x], ok[y, x]
+
+
+def _normalized(xy: torch.Tensor, rig: stereo.RectifiedRig) -> torch.Tensor:
+    """Pixel -> ideal coords in the rectified pinhole (the K^-1
+    normalization of ref src/utils/PointFeatureMatching.cpp:95-153)."""
+    return torch.stack(
+        [(xy[:, 0] - rig.cx) / rig.fx, (xy[:, 1] - rig.cy) / rig.fy], dim=-1
+    )
+
+
+def verify_from_points(
+    cfg: VerifyConfig,
+    generator: Optional[torch.Generator],
+    left_a: torch.Tensor,
+    pts_a: torch.Tensor,
+    ok_a: torch.Tensor,
+    left_b: torch.Tensor,
+    pts_b: torch.Tensor,
+    ok_b: torch.Tensor,
+    rig: stereo.RectifiedRig,
+    sample_idx=(None, None, None),  # per option A/B/C: (H, S) or None
+) -> VerifiedLoop:
+    """Matching, three RANSAC poses and the gates for one pair whose 3D
+    point maps are already computed."""
+    _check_tier1(cfg)
+    m = features.match_image_pair_steerable(
+        left_a, left_b, max_kp=cfg.max_features, gms_factor=cfg.gms_factor,
+        oriented=cfg.oriented_matching, scales=cfg.scale_banks,
+    )
+    n_matches = m.count()
+    attempt = n_matches >= cfg.min_matches_attempt
+
+    X_a, d_ok_a = _gather_3d(pts_a, ok_a, m.xy_a)
+    X_b, d_ok_b = _gather_3d(pts_b, ok_b, m.xy_b)
+    x_a = _normalized(m.xy_a, rig)
+    x_b = _normalized(m.xy_b, rig)
+    depth_ok_a = d_ok_a & (X_a[:, 2] > cfg.min_depth) & (X_a[:, 2] < cfg.max_depth)
+    depth_ok_b = d_ok_b & (X_b[:, 2] > cfg.min_depth) & (X_b[:, 2] < cfg.max_depth)
+
+    common = dict(
+        n_hyp=cfg.ransac_hypotheses,
+        min_inlier_ratio=cfg.min_inlier_ratio,
+        min_points=cfg.min_points_for_solve,
+    )
+    # Option A: 3D(a) -> 2D(b): returns b_T_a (ref :1509-1529)
+    res_a = ransac.ransac_pnp(
+        generator, X_a, x_b, m.valid & depth_ok_a, sample_size=cfg.pnp_sample_size,
+        inlier_thresh=cfg.pnp_inlier_error, sample_idx=sample_idx[0], **common,
+    )
+    # Option B: 3D(b) -> 2D(a): returns a_T_b, inverted (ref :1563-1586)
+    res_b = ransac.ransac_pnp(
+        generator, X_b, x_a, m.valid & depth_ok_b, sample_size=cfg.pnp_sample_size,
+        inlier_thresh=cfg.pnp_inlier_error, sample_idx=sample_idx[1], **common,
+    )
+    # Option C: 3D-3D (ref :1620-1643), with a depth-adaptive per-point
+    # inlier threshold (stereo depth noise grows as Z^2)
+    icp_thresh = torch.clamp(
+        cfg.icp_depth_relative * torch.maximum(X_a[:, 2], X_b[:, 2]),
+        min=cfg.icp_inlier_error,
+    )
+    res_c = ransac.ransac_icp(
+        generator, X_a, X_b, m.valid & depth_ok_a & depth_ok_b,
+        sample_size=cfg.icp_sample_size, inlier_thresh=icp_thresh,
+        sample_idx=sample_idx[2], **common,
+    )
+
+    poses = torch.stack([res_a.T, se3.pose_inverse(res_b.T), res_c.T])
+    successes = torch.stack([res_a.success, res_b.success, res_c.success])
+    confs = torch.stack([res_a.confidence, res_b.confidence, res_c.confidence])
+
+    # 3-way consistency (ref ProcessedLoopCandidate.cpp:63-87)
+    ang_ab, t_ab = se3.pose_delta_metrics(poses[0], poses[1])
+    ang_ac, t_ac = se3.pose_delta_metrics(poses[0], poses[2])
+    ang_bc, t_bc = se3.pose_delta_metrics(poses[1], poses[2])
+    ang_ok = torch.stack([ang_ab, ang_ac, ang_bc]).amax() < cfg.consistency_deg
+    t_ok = torch.stack([t_ab, t_ac, t_bc]).amax() < cfg.consistency_m
+    nan_free = torch.isfinite(poses).all()  # ref NaN guard :1678-1681
+    consistent = ang_ok & t_ok & nan_free & successes.all()
+    accepted = attempt & consistent & (n_matches > cfg.min_matches_accept)
+    return VerifiedLoop(
+        T_b_a=poses[0],
+        poses=poses,
+        option_success=successes,
+        confidences=confs,
+        n_matches=n_matches,
+        consistent=consistent,
+        accepted=accepted,
+    )
+
+
+def verify_pair(
+    cfg: VerifyConfig,
+    generator: Optional[torch.Generator],
+    left_a: torch.Tensor,  # (H, W) rectified grayscale float32
+    right_a: torch.Tensor,
+    left_b: torch.Tensor,
+    right_b: torch.Tensor,
+    rig: stereo.RectifiedRig,
+    sample_idx=(None, None, None),
+) -> VerifiedLoop:
+    """Verify one stereo pair (a := earlier frame, b := later frame).
+    Depth for both frames is one K3 launch on CUDA tensors."""
+    res = verify_pair_batch(
+        cfg, generator, left_a[None], right_a[None], left_b[None], right_b[None],
+        rig, sample_idx=[sample_idx],
+    )
+    return VerifiedLoop(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+
+
+def verify_pair_batch(
+    cfg: VerifyConfig,
+    generator: Optional[torch.Generator],
+    left_a: torch.Tensor,  # (P, H, W)
+    right_a: torch.Tensor,
+    left_b: torch.Tensor,
+    right_b: torch.Tensor,
+    rig: stereo.RectifiedRig,
+    sample_idx=None,  # per pair, a (A, B, C) triple of (H, S) or None
+) -> VerifiedLoop:
+    """P candidate pairs: stereo depth of all 2P frames in ONE K3 launch
+    (on CUDA tensors), then matching and the three RANSAC poses per pair.
+    Every VerifiedLoop field gains a leading P axis."""
+    _check_tier1(cfg)
+    P = left_a.shape[0]
+    pts, ok, _ = stereo.depth_pipeline_rectified(
+        torch.cat([left_a, left_b]), torch.cat([right_a, right_b]), rig,
+        num_disp=cfg.num_disparities, block=cfg.block_size,
+    )
+    results = [
+        verify_from_points(
+            cfg, generator, left_a[p], pts[p], ok[p], left_b[p], pts[P + p], ok[P + p],
+            rig, sample_idx=(None, None, None) if sample_idx is None else sample_idx[p],
+        )
+        for p in range(P)
+    ]
+    return VerifiedLoop(
+        **{
+            f.name: torch.stack([getattr(r, f.name) for r in results])
+            for f in dataclasses.fields(VerifiedLoop)
+        }
+    )

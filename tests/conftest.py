@@ -26,3 +26,9 @@ import pytest  # noqa: E402
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips where there is none"
+    )
