@@ -1,5 +1,5 @@
 """SE(3) / SO(3) helpers on tensors (counterpart of cerebro_tpu/geometry/se3.py,
-the functions verification, PnP and Umeyama call).
+the functions verification, PnP, Umeyama and the pose graph call).
 
 Conventions: poses are 4x4 homogeneous matrices ``w_T_c`` (camera -> world),
 quaternions are ``(w, x, y, z)``, Euler order is yaw-pitch-roll (Z-Y-X
@@ -143,6 +143,29 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
     V = eye + B * W + C * W2
     return make_pose(so3_exp(w), (V @ v[..., None])[..., 0])
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """(...,4,4) pose -> (...,6) twist (v, w)."""
+    w = so3_log(T[..., :3, :3])
+    theta2 = (w * w).sum(-1)[..., None, None]
+    W = hat(w)
+    small = theta2 < 1e-6
+    t2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    A, B, _ = _sincos_coeffs(theta2)
+    # V^{-1} = I - W/2 + (1/theta^2)(1 - A/(2B)) W^2
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0, (1.0 - A / (2.0 * B)) / t2_safe)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(W.shape)
+    Vinv = eye - 0.5 * W + coef * (W @ W)
+    v = (Vinv @ T[..., :3, 3, None])[..., 0]
+    return torch.cat([v, w], dim=-1)
+
+
+def yaw_translation_pose(yaw: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """4-DOF pose (yaw about Z + translation), the parameterization of the
+    4-DOF pose graph."""
+    z = torch.zeros_like(yaw)
+    return make_pose(ypr_to_rot(torch.stack([yaw, z, z], dim=-1)), t)
 
 
 def pose_delta_metrics(A: torch.Tensor, B: torch.Tensor):

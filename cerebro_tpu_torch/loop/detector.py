@@ -1,5 +1,5 @@
 """Loop-candidate generation: batched similarity + temporal consistency
-(counterpart of cerebro_tpu/loop/detector.py, Method A).
+(counterpart of cerebro_tpu/loop/detector.py: Method A, top-1 and top-k).
 
 Re-implements the behavior of the reference's default candidate generator
 ``Cerebro::descrip_N__dot__descrip_0_N`` (src/Cerebro.cpp:903-1103):
@@ -97,26 +97,107 @@ def temporal_consistency(
     )
 
     # New carry: the last two REAL queries of this batch (partial batches
-    # have query_valid False at the tail). Indexing stays on the device.
+    # have query_valid False at the tail).
     n_valid = query_valid.to(torch.int64).sum()
+    new_state = DetectorState(
+        prev_arg=_carry_rows(args, state.prev_arg, n_valid, B),
+        prev_max=_carry_rows(maxs, state.prev_max, n_valid, B),
+        prev_valid=_carry_rows(valids, state.prev_valid, n_valid, B),
+    )
+    return cands, new_state
+
+
+def _carry_rows(arr, old, n_valid, B):
+    """The carry of the last two REAL queries of a batch, from ``arr``
+    (the (B+2, ...) carry-stacked rows) and the old carry ``old`` (2, ...):
+    n_valid == 0 keeps [old0, old1]; == 1 shifts to [old1, new]; >= 2 takes
+    the last two new queries. index_select keeps the indexing on the
+    device."""
     idx_last = (torch.clamp(n_valid - 1, 0, B - 1) + 2).reshape(1)
     idx_prev = (torch.clamp(n_valid - 2, -1, B - 1) + 2).reshape(1)
+    slot0 = torch.where(
+        n_valid >= 2, arr.index_select(0, idx_prev)[0],
+        torch.where(n_valid == 1, old[1], old[0]),
+    )
+    slot1 = torch.where(n_valid > 0, arr.index_select(0, idx_last)[0], old[1])
+    return torch.stack([slot0, slot1])
 
-    def carry(arr, old):
-        # n_valid == 0 keeps [old0, old1]; == 1 shifts to [old1, new];
-        # >= 2 takes the last two new queries. index_select, unlike
-        # indexing with a 0-d tensor, does not wait for the device.
-        slot0 = torch.where(
-            n_valid >= 2, arr.index_select(0, idx_prev)[0],
-            torch.where(n_valid == 1, old[1], old[0]),
-        )
-        slot1 = torch.where(n_valid > 0, arr.index_select(0, idx_last)[0], old[1])
-        return torch.stack([slot0, slot1])
 
-    new_state = DetectorState(
-        prev_arg=carry(args, state.prev_arg),
-        prev_max=carry(maxs, state.prev_max),
-        prev_valid=carry(valids, state.prev_valid),
+@dataclasses.dataclass(frozen=True)
+class TopKState:
+    """Carry for the top-k detector: the top-k hit ids of the 2 newest
+    queries (the locality rule needs the neighbours' hit sets)."""
+
+    prev_idx: torch.Tensor  # (2, K) int32 global ids
+    prev_ok: torch.Tensor  # (2,) bool — those queries existed and were searchable
+
+
+def init_topk_state(k: int, device="cuda") -> TopKState:
+    return TopKState(
+        prev_idx=torch.zeros((2, k), dtype=torch.int32, device=device),
+        prev_ok=torch.zeros((2,), dtype=torch.bool, device=device),
+    )
+
+
+def temporal_consistency_topk(
+    cfg: LoopConfig,
+    state: TopKState,
+    vals: torch.Tensor,  # (B, K) top-k scores per query, queries consecutive
+    idx: torch.Tensor,  # (B, K) top-k history global ids
+    global_idx: torch.Tensor,  # (B,)
+    searchable: torch.Tensor,  # (B,) bool
+    query_valid: torch.Tensor,  # (B,) bool
+) -> Tuple[LoopCandidates, TopKState]:
+    """Method A's locality rule generalized to k hits per query: hit (q, r)
+    agrees when ANY hit of query q-1 (and q-2 for consistency_frames=3)
+    lies within locality_threshold on the history axis. A hit dominated by
+    a better hit of the same query within ±locality (higher score, or equal
+    score at a lower rank) is dropped, so the verifier sees k DISTINCT
+    revisit hypotheses (the widened frontier of the reference's faiss
+    methods, src/Cerebro.cpp:366-722). Flattened (B*K,) candidates,
+    row-major by query; the 2-entry carry makes streamed and batched feeds
+    emit the same candidates."""
+    B, K = vals.shape
+    loc = cfg.locality_threshold
+    idx = idx.to(torch.int32)
+    vals = torch.where(searchable[:, None], vals.float(), torch.full_like(vals.float(), similarity.NEG_INF))
+
+    all_idx = torch.cat([state.prev_idx, idx])  # (B+2, K)
+    all_ok = torch.cat([state.prev_ok, searchable])  # (B+2,)
+    p1, p2 = all_idx[1:-1], all_idx[:-2]  # (B, K) neighbours' hit sets
+    ok1, ok2 = all_ok[1:-1], all_ok[:-2]
+
+    def any_near(a, b):  # (B, K) x (B, K) -> (B, K): any of b's hits near
+        return ((a[:, :, None] - b[:, None, :]).abs() < loc).any(dim=-1)
+
+    if cfg.consistency_frames <= 2:
+        agree = any_near(idx, p1) & ok1[:, None]
+        v_all = ok1
+    else:
+        agree = any_near(idx, p1) & any_near(idx, p2)
+        v_all = ok1 & ok2
+    agree = agree & v_all[:, None]
+
+    near = (idx[:, :, None] - idx[:, None, :]).abs() <= loc  # (B, K, K)
+    r = torch.arange(K, device=vals.device)
+    better = (vals[:, None, :] > vals[:, :, None]) | (
+        (vals[:, None, :] == vals[:, :, None]) & (r[None, None, :] < r[None, :, None])
+    )
+    dominated = (near & better).any(dim=-1)  # (B, K)
+    keep = ~dominated & searchable[:, None]
+
+    strong = vals > cfg.dot_threshold
+    cands = LoopCandidates(
+        curr_idx=global_idx.to(torch.int32).repeat_interleave(K),
+        prev_idx=idx.reshape(-1),
+        score=vals.reshape(-1),
+        valid=(agree & keep & strong).reshape(-1),
+        agree=(agree & keep).reshape(-1),
+    )
+    n_valid = query_valid.to(torch.int64).sum()
+    new_state = TopKState(
+        prev_idx=_carry_rows(all_idx, state.prev_idx, n_valid, B),
+        prev_ok=_carry_rows(all_ok, state.prev_ok, n_valid, B),
     )
     return cands, new_state
 

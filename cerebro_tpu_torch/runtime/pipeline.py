@@ -1,4 +1,4 @@
-"""Host-side orchestration of the Method-A live loop (counterpart of
+"""Host-side orchestration of the live loop (counterpart of
 cerebro_tpu/runtime/pipeline.py).
 
     ingest_frame()            <- per camera frame (the ROS callbacks)
@@ -7,10 +7,14 @@ cerebro_tpu/runtime/pipeline.py).
       image store RAM window  (ref clean_up_useless_images_thread)
       descriptor batch queue  (ref descriptor_computer_thread @20 Hz + RPC)
     -- when a batch fills (or flush_descriptors()):
-      describe -> DB append -> detect (kernel K1)     on the device
+      describe -> DB append -> detect                 on the device
+        Method A top-1: kernel K1; Method A top-k and Methods B, C, D:
+        k passes of kernel K2 (ops/similarity.search_topk)
       candidate gates (Δt, shared tracks)             (ref dot-product thread)
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
       tier-1 verification (kernel K3 for depth) -> LoopEdge
+    optimize_trajectory()     (ref external solve_keyframe_pose_graph)
+      4-DOF switch-constrained pose graph over the keyframes
 
 Detection results stay on the device until a consumer needs them
 (``candidates``, ``verify_pending``, ``status``), so ingest never waits for
@@ -35,7 +39,15 @@ from cerebro_tpu_torch.db.images import ImageStore
 from cerebro_tpu_torch.db.keyframes import KeyframeStore
 from cerebro_tpu_torch.geometry import stereo
 from cerebro_tpu_torch.kidnap import KidnapMonitor
-from cerebro_tpu_torch.loop import detector
+from cerebro_tpu_torch.loop import detector, hypothesis, topk_methods
+from cerebro_tpu_torch.ops import similarity
+from cerebro_tpu_torch.posegraph import (
+    PoseGraph,
+    initialize_worlds,
+    optimize,
+    poses_from_xyzyaw,
+    relative_yaw_t_np,
+)
 from cerebro_tpu_torch.utils.timing import StageTimer
 from cerebro_tpu_torch.verify.geometric import verify_pair_batch
 
@@ -107,10 +119,16 @@ class CerebroPipeline:
         describe_dim: Optional[int] = None,  # D of describe_fn's output
         mesh=None,
         seed: int = 0,
+        body_T_cam: Optional[np.ndarray] = None,  # camera mount on the body/IMU
         device: Optional[str] = None,
     ):
         """``device`` defaults to the CUDA device; without CUDA the caller
-        must pass ``device="cpu"`` explicitly (there is no silent fallback)."""
+        must pass ``device="cpu"`` explicitly (there is no silent fallback).
+
+        ``body_T_cam``: poses arrive as w_T_cam, but the 4-DOF pose graph
+        reasons in a gravity-aligned body frame (the reference's external
+        solver likewise consumes imu_T_cam, README.md:176-194). None means
+        the camera is the body frame."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -122,6 +140,7 @@ class CerebroPipeline:
         self.cfg = cfg or CerebroConfig()
         self._check_supported(mesh, describe_fn)
         self.rig = rig
+        self.body_T_cam = None if body_T_cam is None else np.asarray(body_T_cam, np.float32)
         self.store = KeyframeStore()
         self.images = ImageStore(
             stash_dir=self.cfg.runtime.stash_dir,
@@ -145,7 +164,19 @@ class CerebroPipeline:
                 self.params, imgs, dtype=pdtype, input_scale=scale
             )
         self.db = ddb.create(self.cfg.loop.db_capacity, dim, device=self.device)
+        lcfg = self.cfg.loop
         self.det_state = detector.init_state(self.device)
+        # Method-B carry (Method A's 2-entry state on the rank-0 hit)
+        self.det_state_b = detector.init_state(self.device)
+        # Method-C carry: hits of the last W-1 queries
+        self.clique_state = topk_methods.init_clique_state(lcfg.top_k, device=self.device)
+        # Method-A top-k carry (candidates_per_query > 1)
+        self.topk_state = detector.init_topk_state(
+            max(lcfg.candidates_per_query, 1), device=self.device
+        )
+        # Method-D table; its digest counter and emitted latch live on the
+        # device, so Method D's detect path reads nothing back
+        self.hyp_table = hypothesis.create_table(64, device=self.device)
         # global id -> keyframe-store index (only described keyframes enter
         # the DB; the DB is a ring, so searches return GLOBAL ids and this
         # append-only map stays valid after eviction)
@@ -167,6 +198,10 @@ class CerebroPipeline:
         self.timer = StageTimer()
         self._score_history: List[float] = []
         self._detection_marks: List[int] = []
+        # optional per-query detection log for offline precision/recall
+        # sweeps: (curr_gid, prev_gid, score, agree) per query
+        self.log_queries = False
+        self.query_log: List[tuple] = []
 
     def _check_supported(self, mesh, describe_fn):
         cfg = self.cfg
@@ -177,12 +212,6 @@ class CerebroPipeline:
             )
         if cfg.descriptor.wpca_artifact:
             _not_ported("the WPCA descriptor stage", "item 2, models/wpca.py")
-        if cfg.loop.method != "A" or cfg.loop.candidates_per_query > 1:
-            _not_ported(
-                f"loop method {cfg.loop.method!r} with candidates_per_query="
-                f"{cfg.loop.candidates_per_query}",
-                "item 7, loop/topk_methods.py and loop/hypothesis.py",
-            )
         if cfg.loop.quantized:
             _not_ported("the int8-quantized DB", "item 7, the int8 DB")
         if mesh is not None:
@@ -288,13 +317,65 @@ class CerebroPipeline:
         gidx = torch.arange(row0, row0 + B, dtype=torch.int32, device=self.device)
         qvalid = torch.arange(B, device=self.device) < n_valid
         ddb.append(self.db, descs, n_valid)  # in place: the ring head advances
-        cands, self.det_state = detector.detect_batch(
-            self.cfg.loop, self.db, self.det_state, descs, gidx, qvalid
-        )
+        deferred = self._run_method(descs, gidx, qvalid, n_valid)
         self.db_gid_to_store.extend(store_idx[:n_valid])
         self.store.mark_described(np.asarray(store_idx[:n_valid]))
-        self._deferred_det.append((cands, n_valid))
-        self.timer.sync_point(cands)
+        self._deferred_det.append(deferred)
+        self.timer.sync_point(deferred[1])
+
+    def _run_method(self, descs, gidx, qvalid, n_valid):
+        """Candidate generation per configured method (ref Cerebro::run
+        dispatch, src/Cerebro.cpp:350-357). Returns a record of device
+        tensors, read on the host by ``_drain_detections``."""
+        cfg = self.cfg.loop
+        method = cfg.method
+        if method == "A" and cfg.candidates_per_query <= 1:
+            cands, self.det_state = detector.detect_batch(
+                cfg, self.db, self.det_state, descs, gidx, qvalid
+            )
+            return ("A", cands, n_valid)
+        if method not in ("A", "B", "C", "D"):
+            raise ValueError(f"unknown loop method {method!r}")
+
+        # top-k retrieval: on CUDA tensors k launches of K2
+        k = cfg.candidates_per_query if method == "A" else cfg.top_k
+        limits = ddb.query_limits(self.db, gidx, cfg.exclusion_window)
+        vals, idx = similarity.search_topk(descs, self.db.vectors, limits, self.db.global_ids, k=k)
+        searchable = (limits > 0) & qvalid
+
+        if method == "A":
+            # top-k Method A: k distinct locality-consistent hits per query
+            # go to the verifier (geometry decides, not the argmax)
+            cands, self.topk_state = detector.temporal_consistency_topk(
+                cfg, self.topk_state, vals, idx, gidx, searchable, qvalid
+            )
+            return ("A+", cands, n_valid, k)
+        if method == "B":
+            # Method A's 3-consecutive rule and carry on the rank-0 hit
+            # (ref src/Cerebro.cpp:366-492)
+            cands, self.det_state_b = topk_methods.naive_topk_candidates(
+                cfg, self.det_state_b, vals, idx, gidx, qvalid, limits > 0
+            )
+            return ("B", cands, n_valid)
+        if method == "C":
+            curr, prev, score, ok, self.clique_state = topk_methods.clique_topk_candidates(
+                cfg, self.clique_state, vals, idx, gidx, qvalid
+            )
+            return ("C", (curr, prev, score, ok))
+        # Method D: ALL top-k hits feed the manager, as the reference pushes
+        # every faiss 5-NN hit into HypothesisManager (src/Cerebro.cpp:
+        # 731-885). Exactly one flattened slot per query advances the digest
+        # clock, so batched and streamed feeds emit the same candidates.
+        B, K = vals.shape
+        a_flat = gidx.repeat_interleave(K)
+        qv_rep = qvalid.repeat_interleave(K)
+        last_of_query = (torch.arange(B * K, device=self.device) % K) == (K - 1)
+        self.hyp_table, emits, a_t, b_t, mean_s = hypothesis.update(
+            cfg, self.hyp_table, a_flat, idx.reshape(-1), vals.reshape(-1), qv_rep,
+            query_valid=last_of_query & qv_rep,
+            promote_support=cfg.hypothesis_promote,
+        )
+        return ("D", (a_t, b_t, mean_s, emits))
 
     # ------------------------------------------------------------------
     # Deferred-detection drain (the host reads detection results here)
@@ -309,20 +390,49 @@ class CerebroPipeline:
     def _drain_detections_locked(self):
         pending, self._deferred_det = self._deferred_det, []
         min_dt = self.cfg.verify.min_pair_dt_s
-        for cands, n_valid in pending:
-            valid = cands.valid.cpu().numpy()
-            scores = cands.score.cpu().numpy()
-            curr_g = cands.curr_idx.cpu().numpy()
-            prev_g = cands.prev_idx.cpu().numpy()
-            for k in range(n_valid):
-                if valid[k]:
-                    self._detection_marks.append(len(self._score_history))
-                self._score_history.append(float(np.clip(scores[k], -1.0, 1.0)))
-            for k in range(n_valid):
-                if not valid[k]:
-                    continue
-                curr = self.db_gid_to_store[int(curr_g[k])]
-                prev = self.db_gid_to_store[int(prev_g[k])]
+        for rec in pending:
+            tag = rec[0]
+            if tag in ("A", "B", "A+"):
+                cands, n_valid = rec[1], rec[2]
+                valid, scores, curr_g, prev_g, agree = (
+                    getattr(cands, f).cpu().numpy()
+                    for f in ("valid", "score", "curr_idx", "prev_idx", "agree")
+                )
+                K = rec[3] if tag == "A+" else 1
+                if tag != "B":
+                    # per query: the rank-0 hit is the argmax Method A logs
+                    for q in range(n_valid):
+                        if valid[q * K : (q + 1) * K].any():
+                            self._detection_marks.append(len(self._score_history))
+                        self._score_history.append(float(np.clip(scores[q * K], -1.0, 1.0)))
+                    if self.log_queries:
+                        self.query_log.extend(
+                            (int(curr_g[j]), int(prev_g[j]), float(scores[j]), bool(agree[j]))
+                            for j in range(n_valid * K)
+                            # top-k: skip masked hit slots
+                            if K == 1 or scores[j] > -1.0
+                        )
+                pairs = [
+                    (int(curr_g[j]), int(prev_g[j]), float(scores[j]))
+                    for j in range(n_valid * K)
+                    if valid[j]
+                ]
+            elif tag == "C":
+                curr, prev, score, ok = (x.cpu().numpy() for x in rec[1])
+                pairs = [
+                    (int(curr[k]), int(prev[k]), float(score[k]))
+                    for k in range(len(ok))
+                    if ok[k]
+                ]
+            else:  # "D": (B*K, H) emit events per flattened hit
+                a_t, b_t, mean_s, emits = (x.cpu().numpy() for x in rec[1])
+                pairs = [
+                    (int(a_t[q, h]), int(b_t[q, h]), float(mean_s[q, h]))
+                    for q, h in zip(*np.nonzero(emits))
+                ]
+            for curr_g_, prev_g_, score in pairs:
+                curr = self.db_gid_to_store[curr_g_]
+                prev = self.db_gid_to_store[prev_g_]
                 # Δt gate (ref src/ProcessedLoopCandidate.cpp:49-56)
                 if self.store.stamps[curr] - self.store.stamps[prev] < min_dt:
                     continue
@@ -334,9 +444,7 @@ class CerebroPipeline:
                     and self.store.shared_track_count(curr, prev) > 0
                 ):
                     continue
-                self._candidates.append(
-                    RawCandidate(idx_curr=curr, idx_prev=prev, score=float(scores[k]))
-                )
+                self._candidates.append(RawCandidate(idx_curr=curr, idx_prev=prev, score=score))
 
     @property
     def candidates(self) -> List[RawCandidate]:
@@ -480,8 +588,92 @@ class CerebroPipeline:
             return None
         return tuple(np.asarray(im, np.float32) for im in imgs)
 
-    def optimize_trajectory(self):
-        _not_ported("optimize_trajectory", "item 1, posegraph/optimizer.py")
+    # ------------------------------------------------------------------
+    # Trajectory optimization (pose graph over keyframes)
+    # ------------------------------------------------------------------
+
+    def optimize_trajectory(self) -> Optional[np.ndarray]:
+        """Build and solve the pose graph over the keyframes with valid
+        poses. Returns corrected (N, 4, 4) w_T_cam poses aligned into world
+        0, or None when the graph is trivial (the reference's external
+        solve_keyframe_pose_graph, in the engine)."""
+        kf = np.nonzero(self.store.pose_valid[: self.store.size])[0]
+        if len(kf) < 2:
+            return None
+        idx_of = {int(s): i for i, s in enumerate(kf)}
+        T = self.store.poses[kf]  # w_T_cam
+        if self.body_T_cam is not None:
+            # the graph's states live in the gravity-aligned body frame:
+            # w_T_body = w_T_cam @ cam_T_body
+            T = T @ np.linalg.inv(self.body_T_cam)[None]
+        world = self.store.world_id[kf]
+
+        # assembly is host numpy, as in the JAX package
+        x0 = np.zeros((len(kf), 4), np.float32)
+        x0[:, :3] = T[:, :3, 3]
+        x0[:, 3] = np.arctan2(T[:, 1, 0], T[:, 0, 0])  # rot_to_ypr yaw
+        # odometry edges between consecutive keyframes of the same world
+        oi = np.arange(len(kf) - 1, dtype=np.int32)
+        om = relative_yaw_t_np(T[:-1], T[1:])
+        ov = world[:-1] == world[1:]
+        # loop edges from the verified LoopEdges
+        li, lj, lm = [], [], []
+        for e in self.loop_edges:
+            if e.idx_prev not in idx_of or e.idx_curr not in idx_of:
+                continue
+            li.append(idx_of[e.idx_prev])
+            lj.append(idx_of[e.idx_curr])
+            T_rel = e.T_prev_curr.astype(np.float32)  # cam_prev_T_cam_curr
+            if self.body_T_cam is not None:
+                # conjugate the camera-frame loop edge into the body frame
+                T_rel = self.body_T_cam @ T_rel @ np.linalg.inv(self.body_T_cam)
+            lm.append(relative_yaw_t_np(np.eye(4, dtype=np.float32), T_rel))
+        lv = [True] * len(li)
+        if not li:
+            li, lj, lm, lv = [0], [0], [np.zeros(4, np.float32)], [False]
+        x_init = initialize_worlds(
+            x0, world, np.asarray(li), np.asarray(lj), np.asarray(lm), np.asarray(lv)
+        )
+
+        # Power-of-two buckets with masked padding, as the JAX package pads
+        # (it must, to reuse compiled shapes): padded edges are invalid,
+        # padded nodes are free states held by the damping and sliced off,
+        # so the port solves the same padded problem.
+        def bucket(n, lo):
+            b = lo
+            while b < n:
+                b *= 2
+            return b
+
+        pcfg = self.cfg.posegraph
+        N = len(kf)
+        Bn = bucket(N, pcfg.node_bucket_floor)
+        Bl = bucket(len(li), pcfg.loop_bucket_floor)
+
+        def padded(arr, B, dtype):
+            a = np.asarray(arr, dtype)
+            out = np.zeros((B,) + a.shape[1:], dtype)
+            out[: len(a)] = a
+            return torch.from_numpy(out).to(self.device)
+
+        graph = PoseGraph(
+            xyzyaw=padded(x_init, Bn, np.float32),
+            node_valid=padded(np.ones(N, bool), Bn, bool),
+            odo_i=padded(oi, Bn, np.int64),
+            odo_j=padded(oi + 1, Bn, np.int64),
+            odo_meas=padded(om, Bn, np.float32),
+            odo_valid=padded(ov, Bn, bool),
+            loop_i=padded(li, Bl, np.int64),
+            loop_j=padded(lj, Bl, np.int64),
+            loop_meas=padded(lm, Bl, np.float32),
+            loop_valid=padded(lv, Bl, bool),
+        )
+        with self.timer.stage("optimize"):
+            x_opt, _, _ = optimize(graph, pcfg)
+            out = poses_from_xyzyaw(x_opt)[:N].cpu().numpy()  # w_T_body
+        if self.body_T_cam is not None:
+            out = out @ self.body_T_cam[None]  # back to w_T_cam
+        return out
 
     # ------------------------------------------------------------------
     # Observability

@@ -24,6 +24,10 @@ import cerebro_tpu_torch
 import cerebro_tpu_torch.runtime.pipeline
 import cerebro_tpu_torch.ops.stereo_kernel
 import cerebro_tpu_torch.synthworld
+import cerebro_tpu_torch.eval
+import cerebro_tpu_torch.posegraph
+import cerebro_tpu_torch.loop.hypothesis
+import cerebro_tpu_torch.loop.topk_methods
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))

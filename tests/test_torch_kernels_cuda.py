@@ -6,9 +6,9 @@ they carry the ``cuda`` marker and skip elsewhere. On a machine with a GPU:
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
 They cover the shapes the main path never gives the kernels (ragged N, Q
-across query groups, D off the main width, heights that are no multiple
-of the row band, narrow and wide images, a large block); chip_smoke.py
-covers the main path's.
+across query groups, D off the main width, banned lists of 1 and 8 gids,
+heights that are no multiple of the row band, narrow and wide images, a
+large block); chip_smoke.py covers the main path's.
 """
 
 import numpy as np
@@ -54,6 +54,52 @@ def test_k1_rejects_unaligned_dim(cuda):
     db = torch.zeros((5, 12), device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D % 8"):
         sim.max_and_argmax(q, db, torch.ones(2, dtype=torch.int32, device=cuda))
+
+
+def _k2_case(cuda, Q, N, D, KB, seed):
+    """A ring-wrapped DB with planted queries, random limits (some windows
+    empty or short) and banned lists: each query's planted gid, gids absent
+    from the DB, inert -1 slots."""
+    rng = np.random.default_rng(seed)
+    db = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(cuda)
+    db = torch.nn.functional.normalize(db, dim=1).to(torch.bfloat16)
+    rows = rng.integers(0, N, Q)
+    q = db[torch.from_numpy(rows).to(cuda)].float()
+    g = ((np.arange(N) + N // 3) % N).astype(np.int32)
+    lim = rng.integers(0, N + 1, Q).astype(np.int32)
+    lim[0] = 0  # all masked
+    banned = np.full((Q, KB), -1, np.int32)
+    banned[:, 0] = np.where(rng.random(Q) < 0.5, g[rows], N + 5)  # planted, or absent
+    if KB > 1:
+        banned[:, 1:] = rng.integers(-1, N, (Q, KB - 1))
+    return (q, db, torch.from_numpy(lim).to(cuda), torch.from_numpy(g).to(cuda),
+            torch.from_numpy(banned).to(cuda))
+
+
+@pytest.mark.parametrize(
+    "Q,N,D,KB", [(1, 1, 8, 1), (3, 1000, 64, 1), (9, 4097, 256, 8), (40, 777, 8192, 8)]
+)
+def test_k2_matches_plain(cuda, Q, N, D, KB):
+    q, db, lim, gids, banned = _k2_case(cuda, Q, N, D, KB, seed=Q * N + D + KB)
+    km, kg = sim.max_and_argmax_banned_cuda(q, db, lim, gids, banned)
+    pm, pg = sim.max_and_argmax_banned_plain(q, db, lim, gids, banned)
+    assert torch.equal(kg, pg)
+    # f32 sums of bf16 products in another order: 1e-3 on unit vectors
+    torch.testing.assert_close(km, pm, atol=1e-3, rtol=0)
+    assert bool(km[0] == sim.NEG_INF) and int(kg[0]) == int(gids[0])
+
+
+@pytest.mark.parametrize("Q,N,D,k", [(8, 600, 64, 3), (17, 2000, 128, 5), (5, 40, 8192, 5)])
+def test_search_topk_cuda_matches_plain_on_every_slot(cuda, Q, N, D, k):
+    """K2's k passes plus the dense filler order equal the plain dense top-k
+    on every slot, including queries with fewer than k matchable rows."""
+    q, db, lim, gids, _ = _k2_case(cuda, Q, N, D, 1, seed=Q + N + k)
+    lim[1:4] = torch.tensor([1, 2, 3], dtype=torch.int32, device=cuda)  # 1, 2, 3 rows
+    kv, ki = sim.search_topk(q, db, lim, gids, k=k)
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=k)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+    assert bool((kv <= sim.NEG_INF / 2).any())
 
 
 @pytest.mark.parametrize(
