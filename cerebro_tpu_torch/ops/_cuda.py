@@ -9,7 +9,8 @@ only ever take their plain PyTorch versions.
 
 A launch function runs on the caller's stream (``torch.cuda.current_stream``),
 allocates nothing, and returns ``cudaGetLastError()``; ``Kernel.launch``
-raises if that is not zero.
+raises if that is not zero. Several ``Kernel`` handles may share one source
+(and so one library), each with its own launch count.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# Handles on one source build its library once, whichever asks first.
+_BUILD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -87,7 +90,8 @@ class Kernel:
         os.replace(tmp, self.library)
 
     def build(self):
-        self.finish_build(self.start_build())
+        with _BUILD_LOCK:
+            self.finish_build(self.start_build())
 
     def _load(self):
         with self._lock:
@@ -115,10 +119,17 @@ class Kernel:
 
 
 def build_all(kernels: Sequence[Kernel]) -> float:
-    """Build every kernel's library with one ``nvcc`` each, all running at
-    once. Returns the wall seconds the builds took."""
+    """Build every library the kernels need with one ``nvcc`` each, all
+    running at once; a source that several kernels share is built once.
+    Returns the wall seconds the builds took."""
     t0 = time.perf_counter()
-    started = [(k, k.start_build()) for k in kernels]
-    for k, s in started:
-        k.finish_build(s)
+    with _BUILD_LOCK:
+        started = {}
+        for k in kernels:
+            if k.library not in started:
+                started[k.library] = (k, k.start_build())
+        for k, s in started.values():
+            k.finish_build(s)
+    for k in kernels:
+        k.build_log = started[k.library][0].build_log
     return time.perf_counter() - t0

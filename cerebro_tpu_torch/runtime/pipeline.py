@@ -9,7 +9,7 @@ cerebro_tpu/runtime/pipeline.py).
     -- when a batch fills (or flush_descriptors()):
       describe -> DB append -> detect                 on the device
         Method A top-1: kernel K1; Method A top-k and Methods B, C, D:
-        k passes of kernel K2 (ops/similarity.search_topk)
+        one launch of kernel K2 (ops/similarity.search_topk)
       candidate gates (Δt, shared tracks)             (ref dot-product thread)
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
       tier-1 verification (kernel K3 for depth) -> LoopEdge
@@ -216,6 +216,14 @@ class CerebroPipeline:
             _not_ported("the int8-quantized DB", "item 7, the int8 DB")
         if mesh is not None:
             _not_ported("a multi-device mesh", "item 7, parallel/")
+        # K2 holds each query's top-k in registers, so its list size is
+        # bounded; fail here rather than at the first detect batch
+        k = cfg.loop.candidates_per_query if cfg.loop.method == "A" else cfg.loop.top_k
+        if self.device.type == "cuda" and k > similarity.MAX_TOPK:
+            raise ValueError(
+                f"top-k of {k} candidates per query is above the CUDA kernel's "
+                f"largest top-k size, {similarity.MAX_TOPK}"
+            )
 
     def close(self):
         """Release the image store (and its private stash directory)."""
@@ -337,7 +345,7 @@ class CerebroPipeline:
         if method not in ("A", "B", "C", "D"):
             raise ValueError(f"unknown loop method {method!r}")
 
-        # top-k retrieval: on CUDA tensors k launches of K2
+        # top-k retrieval: on CUDA tensors one launch of K2
         k = cfg.candidates_per_query if method == "A" else cfg.top_k
         limits = ddb.query_limits(self.db, gidx, cfg.exclusion_window)
         vals, idx = similarity.search_topk(descs, self.db.vectors, limits, self.db.global_ids, k=k)

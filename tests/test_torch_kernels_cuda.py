@@ -5,10 +5,13 @@ they carry the ``cuda`` marker and skip elsewhere. On a machine with a GPU:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py -q
 
-They cover the shapes the main path never gives the kernels (ragged N, Q
-across query groups, D off the main width, banned lists of 1 and 8 gids,
-heights that are no multiple of the row band, narrow and wide images, a
-large block); chip_smoke.py covers the main path's.
+They cover the shapes the main path never gives the kernels (ragged N, a DB
+below one TMA box, Q across 64-query tiles, D below one TMA chunk and with a
+ragged last chunk,
+exact duplicate rows across tile and block edges, banned lists of 1 and 8
+gids, every top-k list size, heights that are no multiple of the row band,
+narrow and wide images, a large block); chip_smoke.py covers the main
+path's.
 """
 
 import numpy as np
@@ -31,11 +34,24 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("Q,N,D", [(1, 1, 8), (3, 1000, 64), (9, 4097, 256), (40, 777, 8192)])
-def test_k1_matches_plain(cuda, Q, N, D):
-    rng = np.random.default_rng(Q * N + D)
+def _unit_db(cuda, rng, N, D):
     db = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(cuda)
-    db = torch.nn.functional.normalize(db, dim=1).to(torch.bfloat16)
+    return torch.nn.functional.normalize(db, dim=1).to(torch.bfloat16)
+
+
+# Q: one query, a ragged tile of 16, one full 64-query tile, and 64-query
+# tiles on grid axis y with 1 and 2 queries over. D: below one 64-column
+# TMA chunk, a ragged last chunk (200 = 3 x 64 + 8), the main width.
+_QS = [1, 9, 64, 65, 130]
+_DS = [8, 200, 8192]
+
+
+@pytest.mark.parametrize("Q", _QS)
+@pytest.mark.parametrize("D", _DS)
+def test_k1_matches_plain(cuda, Q, D):
+    N = 1000 + 37 * Q
+    rng = np.random.default_rng(Q * N + D)
+    db = _unit_db(cuda, rng, N, D)
     rows = rng.integers(0, N, Q)
     q = db[torch.from_numpy(rows).to(cuda)].float()  # planted: no near-ties
     gids = torch.from_numpy(((np.arange(N) + N // 3) % N).astype(np.int32)).to(cuda)
@@ -61,8 +77,7 @@ def _k2_case(cuda, Q, N, D, KB, seed):
     empty or short) and banned lists: each query's planted gid, gids absent
     from the DB, inert -1 slots."""
     rng = np.random.default_rng(seed)
-    db = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(cuda)
-    db = torch.nn.functional.normalize(db, dim=1).to(torch.bfloat16)
+    db = _unit_db(cuda, rng, N, D)
     rows = rng.integers(0, N, Q)
     q = db[torch.from_numpy(rows).to(cuda)].float()
     g = ((np.arange(N) + N // 3) % N).astype(np.int32)
@@ -76,10 +91,11 @@ def _k2_case(cuda, Q, N, D, KB, seed):
             torch.from_numpy(banned).to(cuda))
 
 
-@pytest.mark.parametrize(
-    "Q,N,D,KB", [(1, 1, 8, 1), (3, 1000, 64, 1), (9, 4097, 256, 8), (40, 777, 8192, 8)]
-)
-def test_k2_matches_plain(cuda, Q, N, D, KB):
+@pytest.mark.parametrize("Q", _QS)
+@pytest.mark.parametrize("D", _DS)
+def test_k2_matches_plain(cuda, Q, D):
+    KB = 8 if Q % 2 else 1
+    N = 1000 + 37 * Q
     q, db, lim, gids, banned = _k2_case(cuda, Q, N, D, KB, seed=Q * N + D + KB)
     km, kg = sim.max_and_argmax_banned_cuda(q, db, lim, gids, banned)
     pm, pg = sim.max_and_argmax_banned_plain(q, db, lim, gids, banned)
@@ -89,10 +105,80 @@ def test_k2_matches_plain(cuda, Q, N, D, KB):
     assert bool(km[0] == sim.NEG_INF) and int(kg[0]) == int(gids[0])
 
 
+@pytest.mark.parametrize("N", [1, 5, 31])
+@pytest.mark.parametrize("Q,D,KB", [(1, 8, 1), (9, 200, 8)])
+def test_k1_and_banned_on_db_below_one_box(cuda, N, Q, D, KB):
+    """A DB smaller than one 32-row TMA box: one block owns one partial
+    tile. K1, the banned argmax and a top-k of every row against their
+    plain versions; the single query of Q=1 sees every row."""
+    q, db, lim, gids, banned = _k2_case(cuda, Q, N, D, KB, seed=N * Q + D)
+    if Q == 1:
+        lim[0] = N
+    for kernel, plain, extra in (
+        (sim.max_and_argmax_cuda, sim.max_and_argmax_plain, ()),
+        (sim.max_and_argmax_banned_cuda, sim.max_and_argmax_banned_plain, (banned,)),
+    ):
+        km, kg = kernel(q, db, lim, gids, *extra)
+        pm, pg = plain(q, db, lim, gids, *extra)
+        assert torch.equal(kg, pg)
+        torch.testing.assert_close(km, pm, atol=1e-3, rtol=0)
+    k = min(N, 8)
+    kv, ki = sim.search_topk_cuda(q, db, lim, gids, k=k)
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=k)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("edge", ["tile", "block"])
+def test_duplicate_rows_across_edges_score_alike(cuda, edge):
+    """Exact copies of a DB row on both sides of a tile edge (inside a
+    block) or of a block edge score bit-identically, and the lower row wins:
+    K1, the banned argmax with the lower copy banned, and both copies in
+    row order in the top-k."""
+    N, D = 50_000, 256
+    rpb, _ = sim.row_blocks(N, cuda)
+    e = 3 * rpb + sim.TILE_ROWS if edge == "tile" else 5 * rpb
+    assert (e % rpb != 0) == (edge == "tile")
+    rng = np.random.default_rng(e)
+    db = _unit_db(cuda, rng, N, D)
+    db[e - 1] = db[e]
+    q = db[[e, 7]].float()
+    gids = torch.arange(N, dtype=torch.int32, device=cuda) + 11
+    lim = torch.full((2,), N + 11, dtype=torch.int32, device=cuda)
+    _, kg = sim.max_and_argmax(q, db, lim, gids)
+    assert int(kg[0]) == e - 1 + 11
+    banned = torch.tensor([[e - 1 + 11], [-1]], dtype=torch.int32, device=cuda)
+    _, bg = sim.max_and_argmax_banned(q, db, lim, gids, banned)
+    assert int(bg[0]) == e + 11
+    tv, ti = sim.search_topk(q, db, lim, gids, k=3)
+    assert ti[0, :2].tolist() == [e - 1 + 11, e + 11]
+    assert float(tv[0, 0]) == float(tv[0, 1])
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=3)
+    assert torch.equal(ti, pi)
+
+
+@pytest.mark.parametrize("KB", [1, 8])
+def test_five_rows_top5_and_all_masked(cuda, KB):
+    """N = k = 5: every row fills a slot, masked ones after the real hits;
+    an all-masked query gives all five rows at NEG_INF in row order; the
+    banned argmax with KB gids agrees with its plain version."""
+    q, db, lim, gids, banned = _k2_case(cuda, 3, 5, 64, KB, seed=KB)
+    lim[1] = int(gids.min()) + 2  # two matchable rows
+    kv, ki = sim.search_topk(q, db, lim, gids, k=5)
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=5)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+    assert ki[0].tolist() == gids.tolist() and bool((kv[0] == sim.NEG_INF).all())
+    km, kg = sim.max_and_argmax_banned(q, db, lim, gids, banned)
+    pm, pg = sim.max_and_argmax_banned_plain(q, db, lim, gids, banned)
+    assert torch.equal(kg, pg)
+    torch.testing.assert_close(km, pm, atol=1e-3, rtol=0)
+
+
 @pytest.mark.parametrize("Q,N,D,k", [(8, 600, 64, 3), (17, 2000, 128, 5), (5, 40, 8192, 5)])
 def test_search_topk_cuda_matches_plain_on_every_slot(cuda, Q, N, D, k):
-    """K2's k passes plus the dense filler order equal the plain dense top-k
-    on every slot, including queries with fewer than k matchable rows."""
+    """One K2 launch equals the plain dense top-k on every slot, including
+    queries with fewer than k matchable rows."""
     q, db, lim, gids, _ = _k2_case(cuda, Q, N, D, 1, seed=Q + N + k)
     lim[1:4] = torch.tensor([1, 2, 3], dtype=torch.int32, device=cuda)  # 1, 2, 3 rows
     kv, ki = sim.search_topk(q, db, lim, gids, k=k)
@@ -100,6 +186,27 @@ def test_search_topk_cuda_matches_plain_on_every_slot(cuda, Q, N, D, k):
     assert torch.equal(ki, pi)
     torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
     assert bool((kv <= sim.NEG_INF / 2).any())
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 6, 7, 8, 9, 16, 17, 32])
+def test_search_topk_every_list_size(cuda, k):
+    """Every instantiated K, and k rounded up to the next one (9 -> 16,
+    17 -> 32), on every slot against the plain dense top-k; one launch of
+    K2 per call."""
+    q, db, lim, gids, _ = _k2_case(cuda, 10, 3000, 128, 1, seed=k)
+    lim[1:4] = torch.tensor([1, 2, 3], dtype=torch.int32, device=cuda)
+    before = sim.K2.launches
+    kv, ki = sim.search_topk(q, db, lim, gids, k=k)
+    assert sim.K2.launches == before + 1 and ki.shape == (10, k)
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=k)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+
+
+def test_search_topk_rejects_k_above_largest_size(cuda):
+    q, db, lim, gids, _ = _k2_case(cuda, 2, 100, 64, 1, seed=0)
+    with pytest.raises(ValueError, match=f"largest top-k size, {sim.MAX_TOPK}"):
+        sim.search_topk(q, db, lim, gids, k=sim.MAX_TOPK + 1)
 
 
 @pytest.mark.parametrize(

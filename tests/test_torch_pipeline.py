@@ -149,6 +149,20 @@ def test_runtime_paths_not_ported_raise(tmp_path):
     pipe.close()
 
 
+@pytest.mark.parametrize(
+    "loop", [{"method": "A", "candidates_per_query": 33}, {"method": "B", "top_k": 33}],
+    ids=["A", "B"],
+)
+def test_cuda_topk_above_kernel_size_raises_at_build(tmp_path, loop):
+    """A top-k the CUDA kernel cannot hold fails when a CUDA pipeline is
+    built, before any device work; the CPU path runs it."""
+    cfg = _base_cfg(tmp_path)
+    cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, **loop))
+    with pytest.raises(ValueError, match="largest top-k size, 32"):
+        CerebroPipeline(cfg, rig=TRIG, device="cuda")
+    CerebroPipeline(cfg, rig=TRIG, device="cpu").close()
+
+
 def test_default_device_is_cuda(tmp_path, monkeypatch):
     """Without a device argument the pipeline runs on CUDA, and raises
     rather than fall back to the CPU when there is none."""

@@ -5,8 +5,9 @@ numpy inputs.
 On the CPU both packages take their plain paths: JAX's dense ``search_topk``
 (``lax.top_k`` over the XLA score matrix) and its XLA banned argmax; the
 port's stable sort of the score matrix and its plain banned argmax. The CUDA
-route of ``search_topk`` (k K2 passes, then the dense filler order) is run
-here with the plain banned argmax standing in for the kernel."""
+kernel's selection (per-block top-k lists, then a merge) is modelled here in
+numpy and held against JAX's dense top-k; the kernel itself is held against
+the plain version on the card (``test_torch_kernels_cuda.py``)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -84,17 +85,53 @@ def test_search_topk_matches_jax_dense_on_every_slot(layout, k):
         assert list(got[1][0, :2]) == [gids[10], gids[50]]
 
 
+def _best_first(vals, rows, k):
+    """The k best (score, row) pairs of each query row under the kernel's
+    order (higher score, then lower row), padded with its initial
+    (-inf, INT_MAX) when there are fewer than k."""
+    Q = vals.shape[0]
+    vals = np.concatenate([vals, np.full((Q, k), -np.inf, np.float32)], axis=1)
+    rows = np.concatenate([rows, np.full((Q, k), np.iinfo(np.int32).max)], axis=1)
+    order = np.lexsort((rows, -vals), axis=-1)[:, :k]
+    return np.take_along_axis(vals, order, 1), np.take_along_axis(rows, order, 1)
+
+
+def _blocked_topk(q, db, lim, gids, k, rows_per_block, lanes=4):
+    """csrc/score_topk.cu's selection over the port's plain masked scores:
+    each block of ``rows_per_block`` rows keeps ``lanes`` lists over its
+    rows taken ``lanes`` apart and merges them into its top-k; the merge
+    kernel takes the top-k of all blocks' lists and maps rows to gids."""
+    s = tsim.scores(*(torch.from_numpy(a) for a in (q, db, lim, gids))).numpy()
+    Q, N = s.shape
+    parts_v, parts_r = [], []
+    for b0 in range(0, N, rows_per_block):
+        rows = np.arange(b0, min(N, b0 + rows_per_block))
+        lists = [_best_first(s[:, rows[i::lanes]], np.tile(rows[i::lanes], (Q, 1)), k)
+                 for i in range(lanes)]
+        v, r = _best_first(np.concatenate([lv for lv, _ in lists], 1),
+                           np.concatenate([lr for _, lr in lists], 1), k)
+        parts_v.append(v)
+        parts_r.append(r)
+    v, r = _best_first(np.concatenate(parts_v, 1), np.concatenate(parts_r, 1), k)
+    assert (r < N).all()  # no initial pair survives while k <= N
+    return v, gids[r]
+
+
 @pytest.mark.parametrize("layout", ["wrapped", "partial"])
 @pytest.mark.parametrize("k", [1, 3, 5])
-def test_cuda_route_fills_dense_order(monkeypatch, layout, k):
-    """search_topk_cuda's k banned-argmax passes and filler fill, with the
-    plain banned argmax standing in for K2: every slot equals JAX's dense
-    top-k."""
-    monkeypatch.setattr(tsim, "max_and_argmax_banned_cuda", tsim.max_and_argmax_banned_plain)
-    q, db, lim, gids = _case(layout, seed=1)
+@pytest.mark.parametrize("rows_per_block", [7, 32])
+def test_blocked_selection_matches_jax_dense(layout, k, rows_per_block):
+    """The kernel's two-level selection, masked rows at NEG_INF, equals
+    JAX's dense top-k on every slot, fillers included. With 93 rows, blocks
+    of 7 leave a last block of 2 rows (fewer than k), and in the partial
+    layout blocks past row 60 hold only masked rows."""
+    q, db, lim, gids = _case(layout, n_rows=93, seed=1)
     want = _jax(jsim.search_topk, q, db, lim, gids, k=k)
-    got = _torch(tsim.search_topk_cuda, q, db, lim, gids, k=k)
+    got = _blocked_topk(q, db, lim, gids, k, rows_per_block)
     _assert_topk_equal(got, want)
+    assert (got[0] <= tsim.NEG_INF / 2).any()
+    # the port's own search_topk on the same ragged layout
+    _assert_topk_equal(_torch(tsim.search_topk, q, db, lim, gids, k=k), want)
 
 
 @pytest.mark.parametrize("layout", ["wrapped", "partial"])
