@@ -16,6 +16,12 @@ import torch
 from cerebro_tpu_torch.geometry import stereo
 from cerebro_tpu_torch.ops._cuda import Kernel
 
+# The kernel's limits: G = 4 disparity groups of at most 32 register slots,
+# and one thread per (colsum column, group) with 64 + 2 (block // 2)
+# columns.
+MAX_NUM_DISP = 128
+MAX_THREADS = 1024
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
@@ -35,15 +41,25 @@ def block_match_cuda(
     uniqueness: float = 0.85,
     texture_thresh: float = 0.5,
 ):
-    """K3 over a batch: (disparity (B,H,W) f32, valid (B,H,W) bool). The
-    launch fails (CUDA error 1, invalid value) for a num_disp and block
-    whose per-block sums do not fit in shared memory."""
-    if not (left.is_cuda and right.is_cuda):
-        raise ValueError("K3 needs CUDA tensors")
+    """K3 over a batch: (disparity (B,H,W) f32, valid (B,H,W) bool). Raises
+    ValueError, before any launch, for num_disp above MAX_NUM_DISP or a block
+    that needs more than MAX_THREADS threads; the launch fails (CUDA error
+    1, invalid value) for a num_disp and block whose per-block state does
+    not fit in shared memory."""
     if left.shape != right.shape or left.dim() != 3:
         raise ValueError(f"bad shapes {tuple(left.shape)} / {tuple(right.shape)}")
     if block % 2 != 1 or num_disp < 3:
         raise ValueError(f"need an odd block and num_disp >= 3, got {block}, {num_disp}")
+    if num_disp > MAX_NUM_DISP:
+        raise ValueError(f"K3 takes num_disp <= {MAX_NUM_DISP}, got {num_disp}")
+    threads = 4 * (64 + 2 * (block // 2))
+    if threads > MAX_THREADS:
+        raise ValueError(
+            f"K3 takes a block of at most {MAX_THREADS} threads, (64 + 2 (block // 2)) x 4; "
+            f"block {block} needs {threads}"
+        )
+    if not (left.is_cuda and right.is_cuda):
+        raise ValueError("K3 needs CUDA tensors")
     B, H, W = left.shape
     L = left.float().contiguous()
     R = right.to(device=L.device, dtype=torch.float32).contiguous()

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``cerebro_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase: the run that counts
+    python3 chip_smoke.py --phase k3    # K3 alone, an iteration aid
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -29,7 +30,10 @@ also reported):
   k3        kernel K3 (csrc/stereo_bm.cu) against the plain block_match on
             8 rendered 240x320 images at 64 disparities and a 21x21 block:
             masks agree on >= 99.9% of pixels and |disparity difference| <=
-            1e-3 where both are valid;
+            1e-3 where both are valid; its time by CUDA events over back-
+            to-back calls and, from a torch.profiler trace, the kernel's own
+            device time; then one depth_pipeline_rectified call over the
+            8 pairs, verification's entry to K3, which must launch it once;
   pipeline  the port's CerebroPipeline (ported MobileNet + NetVLAD
             descriptor, default 29,184-row DB, 8-frame descriptor batches,
             default VerifyConfig except cascade=False and the accept gate
@@ -66,6 +70,12 @@ also reported):
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises; the script exits non-zero without CUDA.
 
+``--phase k3`` builds only csrc/stereo_bm.cu and runs the ``device`` and
+``k3`` phases, then a ``kernels`` line holding K3 alone (its launches those
+of the depth_pipeline_rectified call) and the same last two lines. It is
+for iterating on K3 and for timing K3 of two trees in one call; it drives
+no main-path run, so its result does not replace the full run's.
+
 Times are CUDA-event times over repeated launches after a warm-up.
 ``bound_ms`` is the larger of (bytes each input read once and each output
 written once) / 3.35 TB/s and operations / the H100's peak rate for their
@@ -75,6 +85,7 @@ H100 SXM figures.
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -361,14 +372,42 @@ def phase_k3(device, world) -> dict:
         raise AssertionError("K3 found no valid disparity on a textured scene")
     nbytes = 2 * B * H * W * 4 + B * H * W * (4 + 1)
     b_ms, b_by = bound(nbytes, k3_ops(B, H, W, nd), F32_OPS_PER_S)
-    return {
+    out = {
         "phase": "k3", "B": B, "H": H, "W": W, "num_disp": nd, "block": blk, **cmp,
-        "kernel_ms": cuda_ms(lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), 20),
+        "kernel_ms": cuda_ms(lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), 50),
+        "kernel_device_ms": profiled_kernel_ms(
+            lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), "stereo_bm", 20
+        ),
         "plain_ms": cuda_ms(lambda: stereo.block_match(L, R, nd, blk), 5),
         "library_ms": None,
         "bound_ms": b_ms,
         "bound_by": b_by,
     }
+    stereo_kernel.K3.launches = 0
+    pts, ok, _ = stereo.depth_pipeline_rectified(L, R, ren.rig(), num_disp=nd, block=blk)
+    torch.cuda.synchronize()
+    out["depth_pipeline_launches"] = stereo_kernel.K3.launches
+    if out["depth_pipeline_launches"] != 1 or not bool(torch.isfinite(pts[ok]).all()):
+        raise AssertionError(f"depth_pipeline_rectified: {out['depth_pipeline_launches']} K3 launches")
+    return out
+
+
+def profiled_kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of the kernels whose name contains ``name`` over
+    ``reps`` calls of ``fn`` under torch.profiler: the kernel alone, with
+    no host gap between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+    if len(times) != reps:
+        raise AssertionError(f"the trace holds {len(times)} {name} kernels for {reps} calls")
+    return sum(times) / len(times) / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +763,11 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--phase", choices=("all", "k3"), default="all",
+                    help="all: every phase (default); k3: build and check K3 alone")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
@@ -738,8 +781,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda:0")
     smi = nvidia_smi()
-    build_s = build_all([K1, K2, K3])
-    for k in {k.source: k for k in (K1, K2, K3)}.values():  # K1 and K2 share a source
+    kernels = [K3] if args.phase == "k3" else [K1, K2, K3]
+    build_s = build_all(kernels)
+    for k in {k.source: k for k in kernels}.values():  # K1 and K2 share a source
         print(f"--- nvcc {k.source.name} ---\n{k.build_log}", file=sys.stderr)
     emit({
         "phase": "device",
@@ -753,6 +797,12 @@ def main() -> int:
     })
 
     world = sw.CircuitWorld.create(seed=0)
+    if args.phase == "k3":
+        k3 = phase_k3(device, world)
+        emit(k3)
+        emit({"kernels": [k3_entry(k3, k3["depth_pipeline_launches"])]})
+        return finish(smi)
+
     k1 = phase_k1(device)
     emit(k1)
     k2 = phase_k2(device)
@@ -817,10 +867,19 @@ def main() -> int:
                      "cerebro_tpu/ops/similarity.py:98", run["k1_launches"],
                      max(x["max_abs_err"] for x in k1["shapes"]), main_k1),
         k2_entry,
-        kernel_entry("K3 stereo_bm", "cerebro_tpu_torch/csrc/stereo_bm.cu",
-                     "cerebro_tpu/ops/stereo_pallas.py:53",
-                     run["k3_launches"] + topk["k3_launches"], k3["max_abs_err"], k3),
+        k3_entry(k3, run["k3_launches"] + topk["k3_launches"]),
     ]})
+    return finish(smi)
+
+
+def k3_entry(k3: dict, launches: int) -> dict:
+    entry = kernel_entry("K3 stereo_bm", "cerebro_tpu_torch/csrc/stereo_bm.cu",
+                         "cerebro_tpu/ops/stereo_pallas.py:53", launches, k3["max_abs_err"], k3)
+    entry["device_ms"] = k3["kernel_device_ms"]
+    return entry
+
+
+def finish(smi: str) -> int:
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -10,8 +10,9 @@ below one TMA box, Q across 64-query tiles, D below one TMA chunk and with a
 ragged last chunk,
 exact duplicate rows across tile and block edges, banned lists of 1 and 8
 gids, every top-k list size, heights that are no multiple of the row band,
-narrow and wide images, a large block); chip_smoke.py covers the main
-path's.
+narrow and wide images, nd at the kernel's limit, small and large blocks,
+the texture wrap at x = 0, more blocks than the card holds at once, float
+images); chip_smoke.py covers the main path's.
 """
 
 import numpy as np
@@ -209,16 +210,50 @@ def test_search_topk_rejects_k_above_largest_size(cuda):
         sim.search_topk(q, db, lim, gids, k=sim.MAX_TOPK + 1)
 
 
+def wrap_scene(rng, B, H, W, shift=5):
+    """Integer-valued images, random with a shift of `shift` columns, but
+    for a strip-0 scene where the texture test passes only through the
+    wrap term |L(0) - L(W - 1)| (x = 0 reads column W - 1): L is flat (100)
+    on columns 0..31 and 101 on column W - 1; R is 100 there too, except
+    columns 18 and 19 at 5100, so pixel x = 9 (block 21, nd 8) matches
+    uniquely at d = 2 (costs per row: d 0: 10,000, d 1: 6,000, d 2: 2,000,
+    d 3: 3,000, ...: 1,000 for each column of the box with x < d). Every
+    box sum stays below 2^24, exact in f32."""
+    base = rng.integers(0, 256, (B, H, W + shift)).astype(np.float32)
+    left, right = base[..., :-shift].copy(), base[..., shift:].copy()
+    left[..., :32] = 100.0
+    left[..., W - 1] = 101.0
+    right[..., :32] = 100.0
+    right[..., 18:20] = 5100.0
+    return left, right
+
+
+# The main shape; heights that are no multiple of the band (241: a partial
+# last band; 37, 41); W below one strip (63) and a ragged last strip; nd not
+# a multiple of the 4 disparity groups (37) and at the kernel's limit (128,
+# J = 32); block 5 and 31; strip 0 whose texture term reads column W - 1;
+# a grid of 768 blocks, more than the card holds at once (3 per SM); a true
+# disparity beyond nd.
 @pytest.mark.parametrize(
-    "B,H,W,nd,block",
-    [(1, 37, 200, 32, 11), (3, 96, 256, 32, 11), (2, 240, 320, 64, 21), (1, 20, 2100, 16, 5),
-     (1, 50, 100, 16, 31)],
+    "B,H,W,nd,block,scene",
+    [(1, 37, 200, 32, 11, "shift"), (3, 96, 256, 32, 11, "shift"), (2, 240, 320, 64, 21, "shift"),
+     (1, 20, 2100, 16, 5, "shift"), (1, 50, 100, 16, 31, "shift"), (1, 241, 320, 64, 21, "shift"),
+     (2, 41, 200, 32, 11, "shift"), (1, 96, 63, 16, 9, "shift"), (2, 60, 150, 37, 11, "shift"),
+     (1, 64, 300, 128, 15, "shift"), (3, 36, 70, 8, 21, "wrap"), (128, 96, 128, 64, 21, "shift"),
+     (1, 30, 120, 37, 9, "far")],
 )
-def test_k3_matches_plain(cuda, B, H, W, nd, block):
+def test_k3_matches_plain(cuda, B, H, W, nd, block, scene):
+    """Integer images shifted by 9 columns ("far": by 45, beyond nd, so the
+    kernel's slots with d >= nd see the true match and must not win)."""
     rng = np.random.default_rng(H * W)
-    base = rng.integers(0, 256, (B, H, W + 9)).astype(np.float32)
-    L = torch.from_numpy(base[..., :-9].copy()).to(cuda)
-    R = torch.from_numpy(base[..., 9:].copy()).to(cuda)
+    if scene == "wrap":
+        left, right = wrap_scene(rng, B, H, W)
+    else:
+        shift = 45 if scene == "far" else 9
+        base = rng.integers(0, 256, (B, H, W + shift)).astype(np.float32)
+        left, right = base[..., :-shift].copy(), base[..., shift:].copy()
+    L = torch.from_numpy(left).to(cuda)
+    R = torch.from_numpy(right).to(cuda)
     dk, vk = stereo_kernel.block_match(L, R, num_disp=nd, block=block)
     dp, vp = stereo.block_match(L, R, num_disp=nd, block=block)
     # integer images: every box sum is exact in f32, whatever the order
@@ -226,3 +261,30 @@ def test_k3_matches_plain(cuda, B, H, W, nd, block):
     both = vk & vp
     assert bool(both.any())
     assert float((dk - dp).abs()[both].max()) <= 1e-5
+    if scene == "wrap":  # pixels x <= 10 pass the texture test through L(W - 1)
+        assert bool(vk[..., nd:11].any())
+
+
+def test_k3_float_images_match_plain(cuda):
+    """Smooth float images: the running sums round differently from the
+    plain version's convolutions, so (as chip_smoke holds K3) masks agree on
+    >= 99.9% of pixels and |disparity difference| <= 1e-3 where both are
+    valid."""
+    rng = np.random.default_rng(7)
+    base = torch.from_numpy(rng.normal(0.0, 40.0, (4, 1, 240, 340)).astype(np.float32)).to(cuda)
+    base = torch.nn.functional.avg_pool2d(base, 3, stride=1, padding=1)[:, 0] + 128.0
+    L, R = base[..., :320].contiguous(), base[..., 13:333].contiguous()
+    dk, vk = stereo_kernel.block_match(L, R, num_disp=64, block=21)
+    dp, vp = stereo.block_match(L, R, num_disp=64, block=21)
+    assert float((vk == vp).float().mean()) >= 0.999
+    both = vk & vp
+    assert int(both.sum()) > 0.3 * both.numel()
+    assert float((dk - dp).abs()[both].max()) <= 1e-3
+
+
+def test_k3_rejects_num_disp_above_limit(cuda):
+    x = torch.zeros((1, 32, 64), device=cuda)
+    before = stereo_kernel.K3.launches
+    with pytest.raises(ValueError, match="128"):
+        stereo_kernel.block_match(x, x, num_disp=129, block=21)
+    assert stereo_kernel.K3.launches == before
