@@ -604,7 +604,7 @@ int launch_k(const Args& a) {
 // Launch the partial and merge kernels on `stream`: out_val / out_gid are
 // (Q, K), part_val / part_row (Q, nblocks, K) scratch with nblocks =
 // ceil(N / rows_per_block); rows_per_block is a multiple of 32. K is one of
-// 1-8, 16, 32; KB = 0 takes no banned list. The caller checks D % 8 == 0 and
+// 1, 2, 4, 8, 16, 32; KB = 0 takes no banned list. The caller checks D % 8 == 0 and
 // 16-byte-aligned queries and db. Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for an unsupported K, a banned list too long for
 // shared memory, or a tensor map the driver refuses.
@@ -617,11 +617,7 @@ extern "C" int score_topk_launch(const void* queries, const void* db, const void
   switch (K) {
     case 1: return launch_k<1>(a);
     case 2: return launch_k<2>(a);
-    case 3: return launch_k<3>(a);
     case 4: return launch_k<4>(a);
-    case 5: return launch_k<5>(a);
-    case 6: return launch_k<6>(a);
-    case 7: return launch_k<7>(a);
     case 8: return launch_k<8>(a);
     case 16: return launch_k<16>(a);
     case 32: return launch_k<32>(a);

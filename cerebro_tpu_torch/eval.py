@@ -67,8 +67,8 @@ def run_sequence(
     trace_dir: Optional[str] = None,
 ) -> RunReport:
     """Feed ``frames`` through ``pipe``, flush, and verify the candidates
-    (``verify_pending`` raises while ``cfg.verify.cascade`` is on: the
-    cascade is not ported)."""
+    (``verify_pending`` with the pipeline's own VerifyConfig, the cascade
+    included)."""
     if trace_dir is not None:
         raise NotImplementedError(
             "run_sequence(trace_dir=...) is not ported yet (ROADMAP Queue 1: "

@@ -49,8 +49,9 @@ _TOPK_ARGS = {"score_topk_launch": [_P] * 9 + [_I] * 6 + [_P]}
 K1 = Kernel("score_topk.cu", _TOPK_ARGS)  # max_and_argmax
 K2 = Kernel("score_topk.cu", _TOPK_ARGS)  # max_and_argmax_banned, search_topk
 
-# The kernel's instantiated list sizes: k is rounded up to the next one.
-TOPK_SIZES = (1, 2, 3, 4, 5, 6, 7, 8, 16, 32)
+# The kernel's instantiated list sizes: k is rounded up to the next one
+# (callers use k = 1, 3, 5: the pipeline's top-3 runs the K = 4 list).
+TOPK_SIZES = (1, 2, 4, 8, 16, 32)
 MAX_TOPK = TOPK_SIZES[-1]
 TILE_ROWS = 128  # DB rows per tile of the kernel (csrc/score_topk.cu)
 

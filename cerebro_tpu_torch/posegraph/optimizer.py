@@ -16,11 +16,11 @@ multi-world merge, ref README.md:176-194):
     (d, d) Jacobian blocks for both end nodes coming from
     ``torch.func.jvp`` of the edge residual (2d batched calls), and each CG
     matvec applies J and J^T through those blocks (gather, batched product,
-    ``index_add_``). The JAX package evaluates J^T J v with one ``jvp`` and
-    one ``vjp`` of the whole residual per matvec, which XLA fuses; run
-    eagerly, that is hundreds of small operations per CG iteration (44 s
-    per solve of 365 keyframes on the H100, ``chip_smoke.py``), where the
-    blocks take a few dozen.
+    and a fixed-order sum of the edge rows onto the nodes). The JAX package
+    evaluates J^T J v with one ``jvp`` and one ``vjp`` of the whole residual
+    per matvec, which XLA fuses; run eagerly, that is hundreds of small
+    operations per CG iteration (44 s per solve of 365 keyframes on the
+    H100, ``chip_smoke.py``), where the blocks take a few dozen.
 
 The CG solve is the JAX package's ``jax.scipy.sparse.linalg.cg`` over the
 pair {x, s_logit}, written out: x0 = 0, stop once the squared residual norm
@@ -28,8 +28,9 @@ is <= tol^2 * |b|^2 (tol = 1e-5, atol = 0) or after ``cg_iters``
 iterations. The stopping test is read on the host once per iteration (the
 JAX ``while_loop``'s condition), so the iterations run are the same as
 JAX's. Everything stays on the caller's device, in the type of the states
-(f32 from the pipeline). On CUDA, ``index_add_`` sums with atomics, so the
-last bits of a solve may change from run to run.
+(f32 from the pipeline). J^T sums each node's edge rows in one fixed order
+(``_NodeSum``: a padded gather and a sum, no atomics), so a solve gives the
+same bits on every run, as the JAX solve does.
 
 Graph assembly helpers (``relative_yaw_t_np``, ``initialize_worlds``) are
 host numpy, as in the JAX package.
@@ -125,20 +126,22 @@ def _pair_residual(xi: torch.Tensor, xj: torch.Tensor, meas: torch.Tensor) -> to
 @dataclasses.dataclass
 class _Edges:
     """One edge set linearized at the current states: residuals r (E, d)
-    and Jacobian blocks Ji, Jj (E, d, d) for the end nodes i, j."""
+    and Jacobian blocks Ji, Jj (E, d, d) for the end nodes i, j, and both
+    transposed, stacked as JT (2, E, d, d)."""
 
     i: torch.Tensor
     j: torch.Tensor
     r: torch.Tensor
     Ji: torch.Tensor
     Jj: torch.Tensor
+    JT: torch.Tensor
 
     @classmethod
     def linearize(cls, x, i, j, meas, jacobians: bool = True):
         xi, xj = x.index_select(0, i), x.index_select(0, j)
         d = x.shape[-1]
         if not jacobians:
-            return cls(i, j, _pair_residual(xi, xj, meas), None, None)
+            return cls(i, j, _pair_residual(xi, xj, meas), None, None, None)
 
         def f(a, b):
             return _pair_residual(a, b, meas)
@@ -150,18 +153,52 @@ class _Edges:
             r, ci = torch.func.jvp(f, (xi, xj), (e, torch.zeros_like(xj)))
             cols_i.append(ci)
             cols_j.append(torch.func.jvp(f, (xi, xj), (torch.zeros_like(xi), e))[1])
-        return cls(i, j, r, torch.stack(cols_i, -1), torch.stack(cols_j, -1))
+        Ji, Jj = torch.stack(cols_i, -1), torch.stack(cols_j, -1)
+        return cls(i, j, r, Ji, Jj, torch.stack([Ji, Jj]).transpose(-1, -2))
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """J v: (E, d) from node tangents v (N, d)."""
         vi, vj = v.index_select(0, self.i), v.index_select(0, self.j)
         return (self.Ji @ vi[..., None] + self.Jj @ vj[..., None])[..., 0]
 
-    def apply_t(self, u: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-        """out += J^T u for edge rows u (E, d), scattered onto the nodes."""
-        out.index_add_(0, self.i, (self.Ji.transpose(-1, -2) @ u[..., None])[..., 0])
-        out.index_add_(0, self.j, (self.Jj.transpose(-1, -2) @ u[..., None])[..., 0])
-        return out
+    def rows_t(self, u: torch.Tensor) -> torch.Tensor:
+        """(2E, d): Ji^T u_e for every edge, then Jj^T u_e — the terms of
+        J^T u that go to the nodes ``cat([i, j])``."""
+        return (self.JT @ u[None, ..., None]).reshape(-1, u.shape[-1])
+
+
+class _NodeSum:
+    """Sums rows onto nodes in a fixed order: row k goes to node
+    ``nodes[k]``, and each node adds its rows in row order. The rows are
+    gathered into a (N, width) table padded with a zero row, then summed
+    along the table, so no two runs order the additions differently (an
+    ``index_add_`` on CUDA adds with atomics in whatever order the threads
+    land). Rows with ``keep`` False (the edges a graph masks: their rows
+    are zero) stay out of the table; otherwise the padding edges, all on
+    node 0, would set its width. The table is built once per solve: the
+    edges do not change."""
+
+    def __init__(self, nodes: torch.Tensor, keep: torch.Tensor, n: int):
+        rows = torch.nonzero(keep).squeeze(1)  # one host read per solve
+        kept = nodes.index_select(0, rows)
+        order = rows.index_select(0, torch.argsort(kept, stable=True))
+        counts = torch.bincount(kept, minlength=n)
+        self.width = int(counts.max()) if len(rows) else 0
+        first = torch.cumsum(counts, 0) - counts
+        sorted_nodes = nodes.index_select(0, order)
+        rank = torch.arange(len(order), device=nodes.device) - first.index_select(0, sorted_nodes)
+        # entries past a node's rows point at the zero row after the last row
+        table = torch.full((n, max(self.width, 1)), nodes.shape[0], dtype=torch.int64, device=nodes.device)
+        table[sorted_nodes, rank] = order
+        self.table = table[:, : self.width].reshape(-1)
+        self.n = n
+
+    def __call__(self, rows) -> torch.Tensor:
+        """(N, d) node sums of the rows (a sequence of (R_k, d) blocks in
+        the order of ``nodes``)."""
+        d = rows[0].shape[-1]
+        padded = torch.cat([*rows, rows[0].new_zeros(1, d)])
+        return padded.index_select(0, self.table).reshape(self.n, self.width, d).sum(dim=1)
 
 
 class _Linearized:
@@ -172,9 +209,12 @@ class _Linearized:
     valid * s(1-s); the gauge 10 (x[0] - x_init[0]) pins node 0."""
 
     def __init__(self, params: Dict[str, torch.Tensor], graph: PoseGraph, cfg: PoseGraphConfig,
-                 jacobians: bool = True):
+                 node_sum: _NodeSum | None = None):
+        """``node_sum`` (over the nodes of [odo_i, odo_j, loop_i, loop_j])
+        makes the Jacobian blocks for ``jt``; without it, residuals only."""
         x, logit = params["x"], params["s_logit"]
-        self.n = x.shape[0]
+        jacobians = node_sum is not None
+        self.node_sum = node_sum
         self.odo = _Edges.linearize(x, graph.odo_i, graph.odo_j, graph.odo_meas, jacobians)
         self.loop = _Edges.linearize(x, graph.loop_i, graph.loop_j, graph.loop_meas, jacobians)
         self.ov = graph.odo_valid.to(x.dtype)[:, None]
@@ -205,9 +245,7 @@ class _Linearized:
 
     def jt(self, u) -> Dict[str, torch.Tensor]:
         uo, ul, us, ug = u
-        gx = torch.zeros((self.n,) + ug.shape, dtype=ug.dtype, device=ug.device)
-        self.odo.apply_t(self.ov * uo, gx)
-        self.loop.apply_t(self.sv * ul, gx)
+        gx = self.node_sum([self.odo.rows_t(self.ov * uo), self.loop.rows_t(self.sv * ul)])
         gx[0] += 10.0 * ug
         return {"s_logit": (self.dl * ul).sum(-1) + self.dsw * us, "x": gx}
 
@@ -250,8 +288,11 @@ def optimize(
         "x": x0,
         "s_logit": torch.full(graph.loop_i.shape, 2.0, dtype=x0.dtype, device=x0.device),
     }
+    nodes = torch.cat([graph.odo_i, graph.odo_j, graph.loop_i, graph.loop_j]).to(torch.int64)
+    keep = torch.cat([graph.odo_valid, graph.odo_valid, graph.loop_valid, graph.loop_valid])
+    node_sum = _NodeSum(nodes, keep, x0.shape[0])
     for _ in range(cfg.max_gn_iters):
-        lin = _Linearized(params, graph, cfg)
+        lin = _Linearized(params, graph, cfg, node_sum)
 
         def jtj_matvec(v, lin=lin):
             jtv = lin.jt(lin.j(v))
@@ -260,7 +301,7 @@ def optimize(
         g = lin.jt(lin.r)
         dx = _cg(jtj_matvec, {k: -v for k, v in g.items()}, cfg.cg_iters)
         params = {k: params[k] + dx[k] for k in params}
-    cost = _Linearized(params, graph, cfg, jacobians=False).cost()
+    cost = _Linearized(params, graph, cfg).cost()
     return params["x"], torch.sigmoid(params["s_logit"]), cost
 
 

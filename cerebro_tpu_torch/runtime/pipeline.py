@@ -12,7 +12,8 @@ cerebro_tpu/runtime/pipeline.py).
         one launch of kernel K2 (ops/similarity.search_topk)
       candidate gates (Δt, shared tracks)             (ref dot-product thread)
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
-      tier-1 verification (kernel K3 for depth) -> LoopEdge
+      tier-1 verification (kernel K3 for depth) -> LoopEdge; pairs that
+      fail for lack of matches escalate to the tier-2 gather matcher
     optimize_trajectory()     (ref external solve_keyframe_pose_graph)
       4-DOF switch-constrained pose graph over the keyframes
 
@@ -190,6 +191,9 @@ class CerebroPipeline:
         # detection results still on the device, read lazily by consumers
         self._deferred_det: List[tuple] = []
         self.loop_edges: List[LoopEdge] = []
+        # cascade counts: pairs tier 1 passed on to tier 2, and its accepts
+        self.escalated_to_tier2 = 0
+        self.tier2_accepted = 0
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed + 1)
         # guards the deferred-detection drain + candidate queue when a
@@ -478,22 +482,20 @@ class CerebroPipeline:
         self, max_pairs: Optional[int] = None, device_batch: int = 4,
         drain: bool = True, cascade: Optional[bool] = None,
     ) -> int:
-        """Geometrically verify queued candidates with the tier-1 matcher;
-        accepted ones become LoopEdges. Returns the number accepted.
+        """Geometrically verify queued candidates; accepted ones become
+        LoopEdges. Returns the number accepted.
 
         Candidates go in ``device_batch``-sized groups: each group's stereo
-        depth is one K3 launch over all its frames. The tier-2 escalation
-        (``cascade``, on by default in VerifyConfig) is not ported: pass
-        ``cascade=False`` or configure it off; with it on this raises rather
-        than skip the escalation."""
+        depth is one K3 launch over all its frames.
+
+        ``cascade`` overrides VerifyConfig.cascade for this call: a live 1 Hz
+        consumer passes False so a match-count failure rejects at once
+        instead of paying the gather-bank escalation while the camera
+        streams; the end-of-run drain escalates as configured. The timer's
+        ``verify_tier1`` and ``verify_tier2`` stages hold each tier's
+        pass; ``status()`` counts the escalated pairs and tier 2's accepts."""
         if self.rig is None:
             raise RuntimeError("verification needs a RectifiedRig (stereo)")
-        use_cascade = self.cfg.verify.cascade if cascade is None else cascade
-        if use_cascade:
-            _not_ported(
-                "verify_pending(cascade=True)",
-                "item 3, the tier-2 gather matcher and the cascade",
-            )
         with self._det_lock:
             if drain and self._deferred_det:
                 with self.timer.stage("drain"):
@@ -503,11 +505,38 @@ class CerebroPipeline:
 
         with self.timer.stage("verify_load"):
             loadable = [(c, p) for c in todo if (p := self._load_pair(c)) is not None]
-        return self._verify_chunks(loadable, device_batch)
 
-    def _verify_chunks(self, loadable, device_batch: int) -> int:
-        """Run (cand, (la, ra, lb, rb)) pairs through tier-1 verification in
-        groups of ``device_batch``."""
+        # Cascade: verify every pair with the cheap tier first; only pairs
+        # that fail for lack of matches (the failure an extreme scale change
+        # causes) escalate to the full gather-bank matcher. An escalated
+        # pair runs its stereo depth (K3) again, as in the JAX package:
+        # tier 2 is the same verification from the images, with another
+        # matcher. Each tier's pass is timed whole as its own stage.
+        vcfg = self.cfg.verify
+        use_cascade = vcfg.cascade if cascade is None else cascade
+        tier1 = tier2 = vcfg
+        if use_cascade:
+            if vcfg.matcher != "steerable":  # the steerable one is already robust
+                tier1 = dataclasses.replace(vcfg, scale_banks=(1.0,))
+            tier2 = dataclasses.replace(vcfg, matcher="gather")
+        escalate: Optional[List] = None if tier1 == tier2 else []
+        with self.timer.stage("verify_tier1"):
+            n_accepted = self._verify_chunks(loadable, tier1, device_batch, escalate=escalate)
+        if escalate:
+            self.escalated_to_tier2 += len(escalate)
+            with self.timer.stage("verify_tier2"):
+                n_tier2 = self._verify_chunks(escalate, tier2, device_batch)
+            self.tier2_accepted += n_tier2
+            n_accepted += n_tier2
+        return n_accepted
+
+    def _verify_chunks(
+        self, loadable, vcfg, device_batch: int, escalate: Optional[List] = None
+    ) -> int:
+        """Run (cand, (la, ra, lb, rb)) pairs through verification under
+        ``vcfg`` in groups of ``device_batch``. With ``escalate`` given,
+        match-count failures are appended there (for a second pass with a
+        stronger matcher) instead of recorded."""
         n_accepted = 0
         for i in range(0, len(loadable), device_batch):
             chunk = loadable[i : i + device_batch]
@@ -518,19 +547,28 @@ class CerebroPipeline:
                 )
             with self.timer.stage("verify"):
                 res = verify_pair_batch(
-                    self.cfg.verify, self._generator,
+                    vcfg, self._generator,
                     lb, rb,  # frame a := prev
                     la, ra,  # frame b := curr
                     self.rig,
                 )
                 self.timer.sync_point(res)
-            n_accepted += self._emit_edges([c for c, _ in chunk], res)
+            n_accepted += self._emit_edges(
+                [c for c, _ in chunk], res, escalate=escalate,
+                pairs_by_cand={id(c): p for c, p in chunk},
+            )
         return n_accepted
 
-    def _emit_edges(self, cands: List[RawCandidate], res) -> int:
+    def _emit_edges(
+        self, cands: List[RawCandidate], res,
+        escalate: Optional[List] = None,
+        pairs_by_cand: Optional[dict] = None,
+    ) -> int:
         """Turn accepted VerifiedLoop entries into LoopEdges. With a := prev,
         b := curr, res.T_b_a[p] = curr_T_prev; the edge stores prev_T_curr.
-        Rejections are recorded with the failing gate."""
+        Rejections are recorded with the failing gate. With ``escalate``
+        given (cascade pass 1), match-count failures are queued there for
+        the scale-robust matcher instead of being recorded as final."""
         with self.timer.stage("verify_fetch"):
             accepted = res.accepted.cpu().numpy()
             T_all = res.T_b_a.cpu().numpy()
@@ -542,6 +580,10 @@ class CerebroPipeline:
         n = 0
         for p, cand in enumerate(cands):
             if not accepted[p]:
+                low_matches = int(nm[p]) <= max(vcfg.min_matches_attempt, vcfg.min_matches_accept)
+                if escalate is not None and low_matches:
+                    escalate.append((cand, pairs_by_cand[id(cand)]))
+                    continue
                 if int(nm[p]) < vcfg.min_matches_attempt:
                     reason = (
                         f"too few matches ({int(nm[p])} < "
@@ -710,6 +752,8 @@ class CerebroPipeline:
             "pending_candidates": len(self.candidates),
             "loop_edges": len(self.loop_edges),
             "rejected_candidates": len(self.rejected_candidates),
+            "escalated_to_tier2": self.escalated_to_tier2,
+            "tier2_accepted": self.tier2_accepted,
             "kidnap": self.kidnap.info(),
             "timings_ms": self.timer.stats(),
         }

@@ -1,5 +1,5 @@
-"""Geometric verification of loop candidates, tier 1 (counterpart of
-cerebro_tpu/verify/geometric.py for stereo pairs and the steerable matcher).
+"""Geometric verification of loop candidates (counterpart of
+cerebro_tpu/verify/geometric.py for stereo pairs).
 
 Re-implements the reference's ``loopcandiate_consumer_thread`` +
 ``process_loop_candidate_imagepair_consistent_pose_compute``
@@ -8,7 +8,8 @@ Re-implements the reference's ``loopcandiate_consumer_thread`` +
 (src/ProcessedLoopCandidate.cpp:40-116):
 
   stereo depth for both frames         (geometry/stereo.py, kernel K3)
-  point matches between the two lefts  (ops/features.py, steerable + GMS)
+  point matches between the two lefts  (ops/features.py: the steerable or
+                                        the gather matcher, + GMS)
   reject if matches < min_matches_attempt            (ref :1487  >=150)
   pose three independent ways, all RANSAC:
     Option A:  PnP( 3D of a -> 2D of b )             (ref :1509-1529)
@@ -49,12 +50,18 @@ class VerifiedLoop:
         return self.confidences.amax(dim=-1)
 
 
-def _check_tier1(cfg: VerifyConfig):
-    if cfg.matcher != "steerable":
-        raise NotImplementedError(
-            "only the steerable (tier-1) matcher is ported; the gather matcher "
-            "is ROADMAP Queue 1 item 3, the tier-2 gather matcher and the cascade"
+def _match(cfg: VerifyConfig, left_a: torch.Tensor, left_b: torch.Tensor) -> features.Matches:
+    """Point matches between the two left images (ref :1484-1493) by the
+    configured matcher."""
+    if cfg.matcher == "steerable":
+        return features.match_image_pair_steerable(
+            left_a, left_b, max_kp=cfg.max_features, gms_factor=cfg.gms_factor,
+            oriented=cfg.oriented_matching, scales=cfg.scale_banks,
         )
+    return features.match_image_pair(
+        left_a, left_b, max_kp=cfg.max_features, gms_factor=cfg.gms_factor,
+        oriented=cfg.oriented_matching, scales=cfg.scale_banks,
+    )
 
 
 def _gather_3d(pts: torch.Tensor, ok: torch.Tensor, xy: torch.Tensor):
@@ -86,11 +93,7 @@ def verify_from_points(
 ) -> VerifiedLoop:
     """Matching, three RANSAC poses and the gates for one pair whose 3D
     point maps are already computed."""
-    _check_tier1(cfg)
-    m = features.match_image_pair_steerable(
-        left_a, left_b, max_kp=cfg.max_features, gms_factor=cfg.gms_factor,
-        oriented=cfg.oriented_matching, scales=cfg.scale_banks,
-    )
+    m = _match(cfg, left_a, left_b)
     n_matches = m.count()
     attempt = n_matches >= cfg.min_matches_attempt
 
@@ -184,7 +187,6 @@ def verify_pair_batch(
     """P candidate pairs: stereo depth of all 2P frames in ONE K3 launch
     (on CUDA tensors), then matching and the three RANSAC poses per pair.
     Every VerifiedLoop field gains a leading P axis."""
-    _check_tier1(cfg)
     P = left_a.shape[0]
     pts, ok, _ = stereo.depth_pipeline_rectified(
         torch.cat([left_a, left_b]), torch.cat([right_a, right_b]), rig,

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py               # every phase: the run that counts
     python3 chip_smoke.py --phase k3    # K3 alone, an iteration aid
+    python3 chip_smoke.py --phase photo # the 1,000-frame photo-world run
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -17,7 +18,8 @@ also reported):
             masked decoy, an exact tie and an all-masked query. Gids must
             agree exactly, max scores within 1e-3;
   k2        kernel K2 (csrc/score_topk.cu) at Q=8 and Q=64 x N=29,184 x
-            D=8,192 bf16, for k = 1, 3, 5 and 8: the banned argmax (K=1)
+            D=8,192 bf16, and at pipeline_photo's Q=16 x N=1,024 (its DB
+            sized to 400 frames), for k = 1, 3, 5 and 8: the banned argmax (K=1)
             with a list of k banned gids (k1's construction; one list bans
             a planted row, the others hold absent gids and inert -1 slots)
             against its plain version, gids exact, max within 1e-3; then
@@ -49,20 +51,39 @@ also reported):
             optimize_trajectory: candidate precision and recall against
             ground truth (as bench_e2e.py computes them), accepted and
             cross-world edges and their error, world-0 ATE before and
-            after, overall ATE after, the optimize time. K2 must launch once
-            per detect batch and K1 never; at least one accepted
+            after, overall ATE after, the optimize time. The solve runs
+            twice and both results must be the same bits. K2 must launch
+            once per detect batch and K1 never; at least one accepted
             edge, every one within 5 deg / 0.5 m of ground truth, at least
             one across the worlds, and world-0 ATE must fall;
   methods   that run's descriptors replayed through detection alone for
             Methods B, C and D (as bench_e2e.py compares methods):
             candidates, precision and recall; K2 must launch once per
             detect batch;
-  profile   one describe, Method-A detect, top-k detect and verify call of
-            the pipelines under torch.profiler, and one optimize_trajectory
-            call: host and device ms, device idle share, device operations
-            per call, top operators;
+  pipeline_photo  the default configuration end to end on the photo world
+            (cerebro_tpu_torch/photoworld.py), 400 frames over 1.4 laps
+            (the 1,000-frame, 3.5-lap run's spacing) with the default
+            kidnap and the camera mount, at bench_e2e.py's settings for
+            this world (1,024 features, 128 RANSAC hypotheses, GMS factor
+            4, accept gate 200, descriptor batches of 16, DB sized to the
+            run), Method A top-3 and the default verification cascade
+            (steerable tier 1, gather-bank tier 2 for match-count
+            failures), then optimize_trajectory: candidate precision and
+            recall, edges, edge precision, cross-world edges, pairs
+            escalated to tier 2 and accepted there, worlds merged, world-0
+            ATE, the seconds of each tier and of the solve. K2 must launch
+            once per detect batch, K1 never, K3 at least once; at least one
+            edge, every one within 5 deg / 0.5 m of ground truth, at least
+            one pair escalated and one accepted by tier 2 (the pipeline's
+            own counts and verify_tier1 / verify_tier2 stages), every
+            world merged and a finite solve;
+  profile   one describe, Method-A detect, top-k detect, tier-1 verify and
+            tier-2 verify call of the pipelines under torch.profiler, and
+            one optimize_trajectory call: host and device ms, device idle
+            share, device operations per call, top operators;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
-            pipeline, K2 in pipeline_topk, K3 in both), error against its
+            pipeline, K2 in pipeline_topk and pipeline_photo, K3 in all
+            three), error against its
             plain version, kernel / plain / library times and the bound;
             K2's also carries the top-3 search_topk call's times and its
             one-pass bound.
@@ -76,6 +97,15 @@ of the depth_pipeline_rectified call) and the same last two lines. It is
 for iterating on K3 and for timing K3 of two trees in one call; it drives
 no main-path run, so its result does not replace the full run's.
 
+``--phase photo`` builds every kernel and runs the ``device`` phase, the
+``k2`` checks with the photo shape at this run's 2,048-row DB, and
+``pipeline_photo`` at 1,000 frames over 3.5 laps (bench_e2e.py's photo
+run, whose BENCH_E2E.json sets the accuracy targets), then the last two
+lines; no kernels line.
+
+Every phase runs with cuDNN's and matmul's TF32 off (set once at start),
+so the numbers stay comparable across versions of the port.
+
 Times are CUDA-event times over repeated launches after a warm-up.
 ``bound_ms`` is the larger of (bytes each input read once and each output
 written once) / 3.35 TB/s and operations / the H100's peak rate for their
@@ -86,6 +116,8 @@ H100 SXM figures.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -99,6 +131,8 @@ BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 FRAMES, LAPS = 400, 2.0  # the pipeline stream: lap 2 revisits lap 1
 TOPK_FRAMES = 400  # the top-k stream: 2 laps with a kidnap
+PHOTO_FRAMES, PHOTO_LAPS = 400, 1.4  # the 1,000-frame, 3.5-lap spacing
+PHOTO_FULL_FRAMES, PHOTO_FULL_LAPS = 1000, 3.5  # bench_e2e.py's photo run
 
 
 _last_emit = time.perf_counter()
@@ -172,7 +206,7 @@ def k1_case(Q: int, N: int, D: int, device, seed: int):
     total = N + 7001  # the ring has wrapped: row != gid
     gids = ring_gids(N, total, device)
     decoy, twin = (total - 1) % N, N - 2
-    fixed = [0, 511, 512, N // 2, N - 1]
+    fixed = list(dict.fromkeys([0, 511, 512, N // 2, N - 1]))
     special = set(fixed) | {decoy, twin}
     perm = torch.randperm(N, generator=g, device=device).tolist()
     rows = fixed + [r for r in perm if r not in special][: Q - len(fixed)]
@@ -251,11 +285,13 @@ def k2_banned(gids, limits, expect, k: int):
     return banned
 
 
-def phase_k2(device, N: int = 29184, D: int = 8192) -> dict:
+def phase_k2(device, N: int = 29184, D: int = 8192, photo_N: int = 1024) -> dict:
+    """The detector's shapes at N rows, and pipeline_photo's top-3 detect
+    (batches of 16 over its photo_N-row DB)."""
     from cerebro_tpu_torch.ops import similarity as sim
 
     out = {"phase": "k2", "N": N, "D": D, "shapes": []}
-    for Q, seed in ((8, 2), (64, 3)):
+    for Q, N, seed in ((8, N, 2), (64, N, 3), (16, photo_N, 4)):
         q, db, lim, gids, expect, masked = k1_case(Q, N, D, device, seed)
         # short windows: queries 2 and 3 see 1 and 2 rows (the ring's
         # oldest gids), fewer than k, so search_topk fills slots
@@ -306,7 +342,7 @@ def phase_k2(device, N: int = 29184, D: int = 8192) -> dict:
             call_bytes = N * D * 2 + Q * D * 2 + Q * 4 + N * 4 + Q * k * 8
             call_b_ms, _ = bound(call_bytes, 2.0 * Q * N * D, BF16_OPS_PER_S)
             out["shapes"].append({
-                "Q": Q, "k": k,
+                "Q": Q, "N": N, "k": k,
                 "max_abs_err": max(err, topk_err),
                 "gids_exact": True, "topk_all_slots_exact": True, "topk_filler_slots": n_filler,
                 "launches_per_call": launches_per_call,
@@ -581,6 +617,7 @@ def phase_pipeline_topk(device, world, n_frames: int, laps: float):
     opt = pipe.optimize_trajectory()
     t_opt = time.perf_counter() - t0
     launches = {"k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches}
+    opt_again = pipe.optimize_trajectory()  # the same input: the same bits
 
     kf = np.nonzero(pipe.store.pose_valid[: pipe.store.size])[0]
     world_id = pipe.store.world_id[kf]
@@ -610,6 +647,8 @@ def phase_pipeline_topk(device, world, n_frames: int, laps: float):
         "edge_trans_err_m_max": max((t for _, t in errs), default=None),
         "ate_before_m_world0": ate_rmse(odo_pos[w0], gt_pos[w0]),
         "ate_after_m_world0": ate_rmse(opt[w0][:, :3, 3], gt_pos[w0]),
+        "ate_after_m_world0_second_solve": ate_rmse(opt_again[w0][:, :3, 3], gt_pos[w0]),
+        "second_solve_bit_equal": bool(np.array_equal(opt, opt_again)),
         "ate_after_m_all": ate_rmse(opt[:, :3, 3], gt_pos),
         "optimize_s": t_opt,
         "optimize_nodes": int(len(kf)),
@@ -659,11 +698,156 @@ def phase_methods(device, topk_pipe, seq, frames_n: int) -> dict:
     return out
 
 
+def photo_config(n_frames: int):
+    """bench_e2e.py::make_config's settings for the photo world
+    (bench_e2e.py:40-72), written out: the ported descriptor, Method A with
+    3 candidates per query, the DB sized to the run (a multiple of 512 rows
+    with one spare), descriptor batches of 16, 1,024 features, 128 RANSAC
+    hypotheses, GMS factor 4, and the accept gate rescaled from 800 to 200
+    for 240x320 images; every other setting the default (the verification
+    cascade on, the steerable tier 1)."""
+    from cerebro_tpu_torch import config as C
+
+    cap = ((n_frames + 511) // 512 + 1) * 512
+    return C.CerebroConfig(
+        descriptor=C.DescriptorConfig(kind="ported"),
+        loop=C.LoopConfig(db_capacity=cap, candidates_per_query=3),
+        runtime=C.RuntimeConfig(descriptor_batch=16, stash_dir=""),
+        verify=C.VerifyConfig(
+            max_features=1024, ransac_hypotheses=128, gms_factor=4.0, min_matches_accept=200
+        ),
+    )
+
+
+def worlds_merged(pipe) -> int:
+    """Worlds joined to world 0 by accepted loop edges (transitively)."""
+    wid = pipe.store.world_id
+    root = list(range(int(pipe.kidnap.world_id) + 1))
+
+    def find(w):
+        while root[w] != w:
+            w = root[w]
+        return w
+
+    for e in pipe.loop_edges:
+        root[find(int(wid[e.idx_curr]))] = find(int(wid[e.idx_prev]))
+    return sum(find(w) == find(0) for w in range(len(root)))
+
+
+def phase_pipeline_photo(device, n_frames: int, laps: float):
+    """The default configuration end to end on the photo world."""
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.eval import ate_rmse
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    t0 = time.perf_counter()
+    world = pw.PhotoWorld.create(seed=0)
+    seq = pw.make_photo_sequence(n_frames=n_frames, laps=laps)  # default kidnap
+    ren = sw.Renderer(world)
+    frames = [ren.stereo(float(x), float(y)) for x, y in seq.xy]
+    t_world = time.perf_counter() - t0
+    cfg = photo_config(n_frames)
+    pipe = CerebroPipeline(cfg, rig=ren.rig(), body_T_cam=sw.body_T_cam(), device=device)
+    pipe.timer.sync = True
+    K1.launches = K2.launches = K3.launches = 0
+    t0 = time.perf_counter()
+    feed_survey(pipe, seq, frames)
+    cands = list(pipe.candidates)
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted = pipe.verify_pending()
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opt = pipe.optimize_trajectory()
+    t_opt = time.perf_counter() - t0
+    launches = {"k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches}
+
+    kf = np.nonzero(pipe.store.pose_valid[: pipe.store.size])[0]
+    w0 = pipe.store.world_id[kf] == 0
+    gt_pos = seq.gt_poses[kf][:, :3, 3]
+    odo_pos = pipe.store.poses[kf][:, :3, 3]
+    errs = edge_errors(pipe, seq)
+    wid = pipe.store.world_id
+    reasons: dict = {}
+    for r in pipe.rejected_candidates:
+        key = "accept gate" if r.reason.startswith("match count") else r.reason.split(" (")[0]
+        reasons[key] = reasons.get(key, 0) + 1
+    status = pipe.status()
+    stats = pipe.timer.stats()
+    steady = pipe.timer.stats(skip_first=1)
+    stages = [k for k in ("describe", "detect", "drain", "verify", "optimize") if k in stats]
+    out = {
+        "phase": "pipeline_photo",
+        "frames": n_frames,
+        "laps": laps,
+        "world": "photo",
+        "settings": "bench_e2e.py make_config: 1024 features, 128 hypotheses, GMS factor 4, "
+                    "accept gate 200 (rescaled from 800 for 240x320), batch 16, "
+                    f"DB {cfg.loop.db_capacity} rows; Method A top-3; default cascade",
+        "candidates_per_query": cfg.loop.candidates_per_query,
+        "kidnap_span": list(seq.kidnap_span),
+        "worlds": int(pipe.kidnap.world_id) + 1,
+        "worlds_merged": worlds_merged(pipe),
+        "described": len(pipe.db_gid_to_store),
+        **candidate_quality(pipe, seq, cands),
+        "edges_accepted": accepted,
+        "edges_rejected": len(pipe.rejected_candidates),
+        "reject_reasons": reasons,
+        "edges_cross_world": sum(int(wid[e.idx_curr] != wid[e.idx_prev]) for e in pipe.loop_edges),
+        "edge_precision": sum(
+            np.linalg.norm(seq.xy[e.idx_curr] - seq.xy[e.idx_prev]) < 1.0 for e in pipe.loop_edges
+        ) / max(len(pipe.loop_edges), 1),
+        "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
+        "edge_trans_err_m_max": max((t for _, t in errs), default=None),
+        "tier1_pairs": len(cands),
+        "tier1_accepted": accepted - status["tier2_accepted"],
+        "escalated_to_tier2": status["escalated_to_tier2"],
+        "tier2_accepted": status["tier2_accepted"],
+        # verify_pending runs each tier once: a stage's one sample
+        "verify_tier1_s": stats["verify_tier1"]["last_ms"] / 1e3,
+        "verify_tier2_s": stats["verify_tier2"]["last_ms"] / 1e3 if "verify_tier2" in stats else 0.0,
+        "ate_before_m_world0": ate_rmse(odo_pos[w0], gt_pos[w0]),
+        "ate_after_m_world0": ate_rmse(opt[w0][:, :3, 3], gt_pos[w0]),
+        "ate_after_m_all": ate_rmse(opt[:, :3, 3], gt_pos),
+        "optimize_s": t_opt,
+        "optimize_nodes": int(len(kf)),
+        "world_and_render_s": t_world,
+        "ingest_s": t_ingest,
+        "verify_s": t_verify,
+        "detect_batches": stats["detect"]["count"],
+        **launches,
+        "stage_mean_ms": {k: steady[k]["mean_ms"] for k in stages if "mean_ms" in steady[k]},
+        "stage_first_ms": {k: steady[k].get("first_ms") for k in stages},
+    }
+    return out, pipe
+
+
+def check_photo(run: dict):
+    check(run["k2_launches"] == run["detect_batches"],
+          f"K2 launched {run['k2_launches']} times for {run['detect_batches']} photo detect batches")
+    check(run["k1_launches"] == 0, "the photo run launched K1")
+    check(run["k3_launches"] > 0, "the photo run never launched K3")
+    check(run["edges_accepted"] >= 1, "the photo run accepted no loop edge")
+    check(run["escalated_to_tier2"] > 0 and run["tier2_accepted"] > 0,
+          "the photo run's cascade escalated no pair or tier 2 accepted none")
+    check(run["edge_rot_err_deg_max"] <= 5.0 and run["edge_trans_err_m_max"] <= 0.5,
+          "an accepted photo-world loop edge is far from ground truth")
+    check(run["worlds_merged"] == run["worlds"], "the photo run left a world unmerged")
+    # no ATE check: at 400 frames over 1.4 laps every revisit lies across
+    # the kidnap (lap 2 starts after it), so world 0 gets no loop of its own
+    check(np.isfinite(run["ate_after_m_all"]), "the photo run's solve is not finite")
+
+
 def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
     """One describe batch, one Method-A detect batch, one top-k detect batch
     and one verify dispatch of the pipelines, each repeated under
-    torch.profiler after a warm-up, and one optimize_trajectory call of the
-    top-k pipeline: host milliseconds per call (ending in a synchronize),
+    torch.profiler after a warm-up, one tier-2 verify dispatch (the gather
+    matcher with the scale banks) of the same pairs, and one
+    optimize_trajectory call of the top-k pipeline: host milliseconds per call (ending in a synchronize),
     device milliseconds (kernels, copies and memsets summed), device
     operations launched per call, and the operators with the most device
     time."""
@@ -708,6 +892,11 @@ def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
         "verify": (reps, lambda: verify_pair_batch(
             pipe.cfg.verify, pipe._generator, lb, rb, la, ra, pipe.rig
         )),
+        # what an escalation runs: the gather matcher with the scale banks
+        "verify_tier2": (1, lambda: verify_pair_batch(
+            dataclasses.replace(pipe.cfg.verify, matcher="gather"), pipe._generator,
+            lb, rb, la, ra, pipe.rig,
+        )),
         "optimize": (1, topk_pipe.optimize_trajectory),
     }
     out = {"phase": "profile", "reps": reps, "verify_pairs": P}
@@ -719,7 +908,8 @@ def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
         # solve. Its top list is by device kernel instead of by operator.
         host_ops = name != "optimize"
         acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host_ops else [ProfilerActivity.CUDA]
-        with profile(activities=acts) as prof:
+        counting = count_cg_matvecs() if name == "optimize" else contextlib.nullcontext([0])
+        with counting as matvecs, profile(activities=acts) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
                 fn()
@@ -734,6 +924,10 @@ def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
             top = {}
             for e in ops:
                 top[e.name[:80]] = top.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+        if name == "optimize":
+            # CG iterations (one J^T J v each) of the traced solve
+            out["optimize_cg_iterations"] = matvecs[0]
+            out["optimize_device_ops_per_cg_iteration"] = len(ops) / max(matvecs[0], 1)
         out[name] = {
             "calls": n,
             "host_ms": wall_ms,
@@ -746,6 +940,29 @@ def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
             },
         }
     return out
+
+
+@contextlib.contextmanager
+def count_cg_matvecs():
+    """Yields a one-element list counting the pose-graph CG's matrix-vector
+    products inside the block (the optimizer's ``_cg`` wrapped, then put
+    back)."""
+    from cerebro_tpu_torch.posegraph import optimizer
+
+    count, real = [0], optimizer._cg
+
+    def cg(matvec, b, maxiter):
+        def counted(v):
+            count[0] += 1
+            return matvec(v)
+
+        return real(counted, b, maxiter)
+
+    optimizer._cg = cg
+    try:
+        yield count
+    finally:
+        optimizer._cg = real
 
 
 def check(cond: bool, msg: str):
@@ -765,8 +982,9 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3"), default="all",
-                    help="all: every phase (default); k3: build and check K3 alone")
+    ap.add_argument("--phase", choices=("all", "k3", "photo"), default="all",
+                    help="all: every phase (default); k3: build and check K3 alone; "
+                         "photo: pipeline_photo at 1,000 frames over 3.5 laps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -796,6 +1014,14 @@ def main(argv=None) -> int:
         "kernel_build_s": build_s,
     })
 
+    if args.phase == "photo":
+        emit(phase_k2(device, photo_N=photo_config(PHOTO_FULL_FRAMES).loop.db_capacity))
+        photo, photo_engine = phase_pipeline_photo(device, PHOTO_FULL_FRAMES, PHOTO_FULL_LAPS)
+        emit(photo)
+        check_photo(photo)
+        photo_engine.close()
+        return finish(smi)
+
     world = sw.CircuitWorld.create(seed=0)
     if args.phase == "k3":
         k3 = phase_k3(device, world)
@@ -805,7 +1031,7 @@ def main(argv=None) -> int:
 
     k1 = phase_k1(device)
     emit(k1)
-    k2 = phase_k2(device)
+    k2 = phase_k2(device, photo_N=photo_config(PHOTO_FRAMES).loop.db_capacity)
     emit(k2)
     k3 = phase_k3(device, world)
     emit(k3)
@@ -841,6 +1067,7 @@ def main(argv=None) -> int:
           "the top-k run accepted no edge across the kidnap's two worlds")
     check(topk["ate_after_m_world0"] < topk["ate_before_m_world0"],
           "optimize_trajectory did not lower world 0's ATE")
+    check(topk["second_solve_bit_equal"], "two solves of one pose graph differ")
 
     methods = phase_methods(device, topk_engine, seq, TOPK_FRAMES)
     emit(methods)
@@ -849,15 +1076,21 @@ def main(argv=None) -> int:
         check(r["k2_launches"] == r["detect_batches"],
               f"method {m}: K2 launched {r['k2_launches']} times for {r['detect_batches']} batches")
 
+    photo, photo_engine = phase_pipeline_photo(device, PHOTO_FRAMES, PHOTO_LAPS)
+    emit(photo)
+    check_photo(photo)
+
     emit(phase_profile(engine, cands, topk_engine))
     engine.close()
     topk_engine.close()
+    photo_engine.close()
 
     main_k1 = k1["shapes"][0]
-    main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["k"] == k)
+    main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["N"] == k2["N"] and x["k"] == k)
     k2_entry = kernel_entry("K2 score_topk (banned argmax; top-k call)",
                             "cerebro_tpu_torch/csrc/score_topk.cu",
-                            "cerebro_tpu/ops/similarity.py:286", topk["k2_launches"],
+                            "cerebro_tpu/ops/similarity.py:286",
+                            topk["k2_launches"] + photo["k2_launches"],
                             max(x["max_abs_err"] for x in k2["shapes"]), main_k2)
     # the main path's K2 launch is a top-3 search_topk call
     k2_entry.update({key: main_k2[key] for key in (
@@ -867,7 +1100,7 @@ def main(argv=None) -> int:
                      "cerebro_tpu/ops/similarity.py:98", run["k1_launches"],
                      max(x["max_abs_err"] for x in k1["shapes"]), main_k1),
         k2_entry,
-        k3_entry(k3, run["k3_launches"] + topk["k3_launches"]),
+        k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]),
     ]})
     return finish(smi)
 

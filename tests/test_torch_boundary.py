@@ -28,6 +28,8 @@ import cerebro_tpu_torch.eval
 import cerebro_tpu_torch.posegraph
 import cerebro_tpu_torch.loop.hypothesis
 import cerebro_tpu_torch.loop.topk_methods
+import cerebro_tpu_torch.photoworld
+import cerebro_tpu_torch.utils.jaxrand
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))
@@ -40,6 +42,28 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
     out = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+_PHOTO_PROBE = """
+import json, sys
+from cerebro_tpu_torch import photoworld
+photos = photoworld.load_photos()
+assert len(photos) == 9
+print(json.dumps(sorted(m for m in ("cv2", "sklearn", "matplotlib", "jax", "cerebro_tpu")
+                        if m in sys.modules)))
+"""
+
+
+def test_photoworld_reads_only_the_bundled_photos():
+    """The port's photo world needs neither OpenCV, scikit-learn nor
+    matplotlib (the machine with the card has none of them)."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", _PHOTO_PROBE], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr

@@ -12,7 +12,10 @@ exact duplicate rows across tile and block edges, banned lists of 1 and 8
 gids, every top-k list size, heights that are no multiple of the row band,
 narrow and wide images, nd at the kernel's limit, small and large blocks,
 the texture wrap at x = 0, more blocks than the card holds at once, float
-images); chip_smoke.py covers the main path's.
+images); chip_smoke.py covers the main path's. Two tests hold properties
+of the plain PyTorch code on the card: the feature filters give the same
+matches whatever cuDNN's TF32 flag says, and a pose-graph solve gives the
+same bits twice.
 """
 
 import numpy as np
@@ -288,3 +291,77 @@ def test_k3_rejects_num_disp_above_limit(cuda):
     with pytest.raises(ValueError, match="128"):
         stereo_kernel.block_match(x, x, num_disp=129, block=21)
     assert stereo_kernel.K3.launches == before
+
+
+def _textured(rng, H=240, W=320):
+    """A smooth random texture with corners at several scales, as 8-bit
+    levels in f32 (the pipeline's images)."""
+    img = np.zeros((H, W), np.float32)
+    for scale, amp in ((4, 0.5), (16, 1.0), (48, 2.0)):
+        small = rng.normal(size=(H // scale + 1, W // scale + 1)).astype(np.float32)
+        img += amp * np.kron(small, np.ones((scale, scale), np.float32))[:H, :W]
+    img = (img - img.min()) / (img.max() - img.min())
+    return np.round(img * 255.0).astype(np.float32)
+
+
+def test_feature_matching_ignores_tf32_flag(cuda):
+    """PyTorch's default lets cuDNN convolutions round f32 inputs to TF32.
+    The matchers' filters (Sobel, box and GMS sums) are single-channel
+    cuDNN convolutions, for which cuDNN picks no TF32 algorithm: keypoints
+    and matches are the same bits with the flag on (the default) and off."""
+    from cerebro_tpu_torch.ops import features
+
+    rng = np.random.default_rng(5)
+    base = _textured(rng, 260, 340)
+    a = torch.from_numpy(np.ascontiguousarray(base[:240, :320])).to(cuda)
+    b = torch.from_numpy(np.ascontiguousarray(base[12:252, 9:329])).to(cuda)
+    banks = (0.5, 0.70710678, 1.0, 1.41421356)
+    runs = {
+        "harris": lambda: features.harris_corners_pyramid(a, max_kp=1024)[0].xy,
+        "steerable": lambda: features.match_image_pair_steerable(a, b, gms_factor=4.0).valid,
+        "gather_tier1": lambda: features.match_image_pair(a, b, gms_factor=4.0, oriented=True).valid,
+        "gather_tier2": lambda: features.match_image_pair(
+            a, b, gms_factor=4.0, oriented=True, scales=banks
+        ).valid,
+    }
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        on = {k: f() for k, f in runs.items()}
+        torch.backends.cudnn.allow_tf32 = False
+        off = {k: f() for k, f in runs.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for k in runs:
+        assert torch.equal(on[k], off[k]), k
+    assert int(on["steerable"].sum()) > 50 and int(on["gather_tier2"].sum()) > 50
+
+
+def test_pose_graph_solve_is_bit_reproducible(cuda):
+    """Two solves of one graph give the same bits (J^T sums in a fixed
+    order; an index_add_ would add with atomics in any order)."""
+    from cerebro_tpu_torch.config import PoseGraphConfig
+    from cerebro_tpu_torch.posegraph import optimizer as opt
+
+    rng = np.random.default_rng(0)
+    n = 400
+    t = np.linspace(0, 4 * np.pi, n)
+    gt = np.stack([8 * np.cos(t), 8 * np.sin(t), 0.1 * np.sin(3 * t), t + np.pi / 2], -1)
+    odo = np.diff(gt, axis=0) + rng.normal(0, [0.02, 0.02, 0.005, 0.004], (n - 1, 4))
+    x0 = np.concatenate([gt[:1], gt[:1] + np.cumsum(odo, 0)]).astype(np.float32)
+    li = np.arange(0, n // 2, 5)
+    lj = li + n // 2  # the second lap revisits the first
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+    T = opt.poses_from_xyzyaw(torch.from_numpy(gt.astype(np.float32)))
+    meas = lambda i, j: opt.relative_yaw_t(T[i], T[j]).numpy()
+    graph = opt.PoseGraph(
+        xyzyaw=f(x0), node_valid=f(np.ones(n, bool)),
+        odo_i=f(np.arange(n - 1)), odo_j=f(np.arange(1, n)), odo_meas=f(meas(np.arange(n - 1), np.arange(1, n))),
+        odo_valid=f(np.ones(n - 1, bool)),
+        loop_i=f(li), loop_j=f(lj), loop_meas=f(meas(li, lj)), loop_valid=f(np.ones(len(li), bool)),
+    )
+    cfg = PoseGraphConfig()
+    x1, s1, c1 = opt.optimize(graph, cfg)
+    x2, s2, c2 = opt.optimize(graph, cfg)
+    assert torch.equal(x1, x2) and torch.equal(s1, s2) and torch.equal(c1, c2)
+    assert float((x1 - graph.xyzyaw).abs().max()) > 1e-2  # the solve moved the states

@@ -2,8 +2,13 @@
 same stereo stream (tests/test_pipeline.py's scene: 14 distinct frames, then
 frames 2..5 revisited).
 
-- Method A, ported descriptor and tier-1 verification: the same candidates
-  and the same accepted edges, with edge poses within 0.5 deg and 2 cm.
+- Method A, ported descriptor and the default verification (steerable tier
+  1, then the gather-bank tier 2 for match-count failures): the same
+  candidates, the same pairs escalated, the same accepted edges, with edge
+  poses within 0.5 deg and 2 cm, and the same rejection gates.
+- The cascade on an approach-distance (1.54x) pair with the gather tier 1:
+  escalated and accepted by tier 2 in both packages, rejected on matches
+  without the scale banks.
 - Method A top-3 and Methods B, C and D, on the same descriptors: the same
   candidates, score history and detection marks.
 - optimize_trajectory after the same LoopEdges are put into both, over a
@@ -39,9 +44,7 @@ def _jax_config(tmp_path):
     # f32 descriptor: the point here is the algorithm, and bf16 rounds at
     # different places in the two frameworks
     return dataclasses.replace(
-        cfg,
-        descriptor=JDescriptorConfig(kind="ported", image_hw=(H, W), dtype="float32"),
-        verify=dataclasses.replace(cfg.verify, cascade=False),
+        cfg, descriptor=JDescriptorConfig(kind="ported", image_hw=(H, W), dtype="float32")
     )
 
 
@@ -72,8 +75,28 @@ def _feed(pipe, stream):
     pipe.flush_descriptors()
 
 
+def _spy_passes(pipe):
+    """One entry per verification pass the pipeline runs: (matcher, scale
+    banks, whether failures may escalate, the (curr, prev) pairs)."""
+    seen, real = [], pipe._verify_chunks
+
+    def chunks(loadable, vcfg, device_batch, escalate=None):
+        pairs = [(c.idx_curr, c.idx_prev) for c, _ in loadable]
+        seen.append((vcfg.matcher, tuple(vcfg.scale_banks), escalate is not None, pairs))
+        return real(loadable, vcfg, device_batch, escalate=escalate)
+
+    pipe._verify_chunks = chunks
+    return seen
+
+
+def _escalated(passes):
+    """The pairs of the tier-2 pass, the one after an escalating pass."""
+    return passes[1][3] if len(passes) == 2 and passes[0][2] else []
+
+
 def test_pipeline_matches_jax(tmp_path, stream):
     jcfg = _jax_config(tmp_path / "j")
+    assert jcfg.verify.cascade and jcfg.verify.matcher == "steerable"  # the defaults
     jp = JPipeline(jcfg, rig=make_rig())
     _feed(jp, stream)
     tp = CerebroPipeline(_port_config(jcfg), rig=TRIG, device="cpu")
@@ -88,9 +111,17 @@ def test_pipeline_matches_jax(tmp_path, stream):
     np.testing.assert_allclose(tp.score_history, jp.score_history, atol=1e-4)
     assert tp.detection_marks == jp.detection_marks
 
-    n_j = jp.verify_pending(cascade=False)
-    n_t = tp.verify_pending(cascade=False)
+    passes_j, passes_t = _spy_passes(jp), _spy_passes(tp)
+    n_j = jp.verify_pending()
+    n_t = tp.verify_pending()
     assert n_t == n_j and n_t >= 1
+    assert passes_t == passes_j
+    assert passes_t[1][0] == "gather" and len(_escalated(passes_t)) >= 1  # tier 2 ran
+    status = tp.status()
+    assert status["escalated_to_tier2"] == len(_escalated(passes_t))
+    tier2_edges = [e for e in tp.loop_edges if (e.idx_curr, e.idx_prev) in _escalated(passes_t)]
+    assert status["tier2_accepted"] == len(tier2_edges)
+    assert status["timings_ms"]["verify_tier1"]["count"] == status["timings_ms"]["verify_tier2"]["count"] == 1
     je = {(e.idx_curr, e.idx_prev): e for e in jp.loop_edges}
     te = {(e.idx_curr, e.idx_prev): e for e in tp.loop_edges}
     assert te.keys() == je.keys()
@@ -141,11 +172,6 @@ def test_runtime_paths_not_ported_raise(tmp_path):
     img = np.zeros((H, W), np.uint8)
     with pytest.raises(NotImplementedError):
         pipe.ingest_frame(0.0, img, n_tracked=100, depth_img=np.ones((H, W), np.float32))
-    with pytest.raises(NotImplementedError):
-        pipe.verify_pending(cascade=True)
-    cascading = dataclasses.replace(cfg, verify=dataclasses.replace(cfg.verify, cascade=True))
-    with pytest.raises(NotImplementedError):
-        CerebroPipeline(cascading, rig=TRIG, device="cpu").verify_pending()
     pipe.close()
 
 
@@ -311,4 +337,102 @@ def test_optimize_trajectory_matches_jax(tmp_path, posegraph, atol):
     kf = np.nonzero(tp.store.pose_valid[: tp.store.size])[0]
     gt = seq.gt_poses[kf][:, :3, 3]
     assert ate_rmse(got[:, :3, 3], gt) < 0.5 * ate_rmse(tp.store.poses[kf][:, :3, 3], gt)
+    tp.close()
+
+
+def _approach_pair():
+    """tests/test_pipeline.py's approach-distance pair: frame b 1.4 m
+    closer along z (1.54x the scale of the near plane), as uint8 images."""
+    from test_verify import stereo_pair
+
+    tex = big_texture(np.random.default_rng(5))
+    Ta = np.eye(4, dtype=np.float32)
+    Tb = np.eye(4, dtype=np.float32)
+    Tb[2, 3] = 1.4
+    to8 = lambda x: np.clip(np.asarray(x) * 255, 0, 255).astype(np.uint8)
+    return (Ta, *(to8(x) for x in stereo_pair(tex, Ta))), (Tb, *(to8(x) for x in stereo_pair(tex, Tb)))
+
+
+def _verify_injected(pipe, pair_a, pair_b, raw_candidate):
+    """Ingest the two frames, then verify the one injected candidate (this
+    drives verification, not detection). Returns (accepted, tier-2 pairs)."""
+    for t, (T, left, right) in ((0.0, pair_a), (30.0, pair_b)):
+        pipe.ingest_frame(t, left, n_tracked=100, pose=T, right_img=right)
+    pipe.flush_descriptors()
+    pipe._drain_detections()
+    pipe._candidates = [raw_candidate(idx_curr=1, idx_prev=0, score=0.9)]
+    passes = _spy_passes(pipe)
+    return pipe.verify_pending(), passes
+
+
+@pytest.mark.parametrize("cascade", [True, False], ids=["cascade", "single_scale"])
+def test_verify_cascade_escalates_scale_change(tmp_path, cascade):
+    """tests/test_pipeline.py::test_verify_cascade_escalates_scale_change in
+    both packages: with the gather tier 1 the 1.54x approach pair fails on
+    match count, escalates, and tier 2 accepts it with t_z within 0.15 of
+    1.4; with cascade=False and scale_banks=(1.0,) it is rejected on
+    matches. The packages accept the same pairs."""
+    from cerebro_tpu.runtime.pipeline import RawCandidate as JRawCandidate
+    from cerebro_tpu_torch.runtime.pipeline import RawCandidate
+
+    jcfg = small_config(tmp_path / "j")
+    verify = dict(min_matches_attempt=110, min_matches_accept=120, icp_inlier_error=0.2,
+                  matcher="gather")
+    if not cascade:
+        verify.update(scale_banks=(1.0,), cascade=False)
+    jcfg = dataclasses.replace(jcfg, verify=dataclasses.replace(jcfg.verify, **verify))
+    assert jcfg.verify.cascade == cascade
+    dim = 16
+    unit = np.full((4, dim), 0.25, np.float32)  # the candidate is injected
+    jp = JPipeline(jcfg, rig=make_rig(), describe_fn=lambda _: jnp.asarray(unit), describe_dim=dim)
+    tp = CerebroPipeline(
+        _port_config(jcfg), rig=TRIG, describe_fn=lambda _: torch.from_numpy(unit),
+        describe_dim=dim, device="cpu",
+    )
+    pair_a, pair_b = _approach_pair()
+    n_j, passes_j = _verify_injected(jp, pair_a, pair_b, JRawCandidate)
+    n_t, passes_t = _verify_injected(tp, pair_a, pair_b, RawCandidate)
+    assert passes_t == passes_j
+    assert _escalated(passes_t) == ([(1, 0)] if cascade else [])
+    assert n_t == n_j == int(cascade)
+    assert tp.status()["escalated_to_tier2"] == tp.status()["tier2_accepted"] == int(cascade)
+    assert ("verify_tier2" in tp.timer.stats()) == cascade
+    if cascade:
+        T = tp.loop_edges[0].T_prev_curr
+        assert abs(T[2, 3] - 1.4) < 0.15, T
+    else:
+        assert len(tp.rejected_candidates) == 1
+        assert "matches" in tp.rejected_candidates[0].reason
+        assert tp.rejected_candidates[0].reason == jp.rejected_candidates[0].reason
+    tp.close()
+
+
+def test_run_sequence_verifies_at_the_default_config(tmp_path, stream):
+    """eval.run_sequence(verify=True) drives verify_pending with the
+    default VerifyConfig (the cascade on) to the same edges as JAX's."""
+    from cerebro_tpu import eval as jeval
+    from cerebro_tpu_torch import eval as teval
+
+    class Frame:
+        def __init__(self, t, la, ra, pose):
+            self.stamp, self._l, self._r, self.pose = t, la, ra, pose
+
+        def left(self):
+            return self._l
+
+        def right(self):
+            return self._r
+
+    frames = [Frame(t, la, ra, pose) for t, (la, ra), pose in stream]
+    jcfg = _jax_config(tmp_path / "j")
+    assert jcfg.verify.cascade
+    jp = JPipeline(jcfg, rig=make_rig())
+    tp = CerebroPipeline(_port_config(jcfg), rig=TRIG, device="cpu")
+    rj = jeval.run_sequence(jp, frames, verify=True)
+    rt = teval.run_sequence(tp, frames, verify=True)
+    assert rt.n_loop_edges == rj.n_loop_edges >= 1
+    assert rt.n_candidates == rj.n_candidates == 0  # all verified
+    assert {(e.idx_curr, e.idx_prev) for e in tp.loop_edges} == {
+        (e.idx_curr, e.idx_prev) for e in jp.loop_edges
+    }
     tp.close()

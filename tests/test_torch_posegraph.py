@@ -156,6 +156,28 @@ def test_optimize_matches_jax(name):
     np.testing.assert_allclose(ct, cj, rtol=1e-3, atol=1e-6)
 
 
+@pytest.mark.parametrize(
+    "n,rows,d,masked", [(7, 40, 4, 0.0), (60, 2, 6, 0.0), (5, 0, 4, 0.0), (9, 60, 4, 0.5)],
+    ids=["dense", "sparse", "empty", "masked"],
+)
+def test_node_sum_equals_index_add(n, rows, d, masked):
+    """J^T's fixed-order sum onto the nodes equals an index_add_ within
+    1e-6, nodes without rows get 0, masked rows (zero, as a graph's masked
+    edges give) are left out, and two calls give the same bits."""
+    rng = np.random.default_rng(n)
+    nodes = torch.from_numpy(rng.integers(0, n, rows))
+    keep = torch.from_numpy(rng.random(rows) >= masked)
+    blocks = [torch.from_numpy(rng.normal(size=(k, d)).astype(np.float32)) for k in (rows // 2, rows - rows // 2)]
+    blocks = [b * k[:, None] for b, k in zip(blocks, torch.split(keep, [len(b) for b in blocks]))]
+    want = torch.zeros((n, d)).index_add_(0, nodes, torch.cat(blocks))
+    node_sum = topt._NodeSum(nodes, keep, n)
+    if masked:
+        assert node_sum.width < int(torch.bincount(nodes).max())
+    got = node_sum(blocks)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    assert torch.equal(node_sum(blocks), got)
+
+
 @pytest.mark.parametrize("name", ["drift", "false_loop", "multi_world"])
 def test_optimize_full_settings_same_basin(name):
     """At the JAX tests' settings: the same basin as JAX, and the JAX tests'

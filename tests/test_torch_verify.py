@@ -210,3 +210,28 @@ def test_verify_batch_equals_single(scene):
         assert bool(two.accepted[p]) == bool(one.accepted)
         assert int(two.n_matches[p]) == int(one.n_matches)
         torch.testing.assert_close(two.T_b_a[p], one.T_b_a)
+
+
+def _first(res):
+    """Pair 0 of a batched VerifiedLoop."""
+    return type(res)(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+
+
+@pytest.mark.parametrize("b", ["b", "c"], ids=["revisit", "non_matching"])
+def test_verify_gather_banks_matches_jax(scene, b):
+    """Tier 2 as the cascade runs it: verify_pair_batch with the gather
+    matcher, the default scale banks and 1,024 features, against the JAX
+    package's verify_pair on the same pair: the same decision and gate, and
+    the match count within 2% (tier 1's standard)."""
+    cfg = dataclasses.replace(CFG, matcher="gather")
+    assert cfg.scale_banks == VerifyConfig().scale_banks and cfg.max_features == 1024
+    (la, ra), (lb, rb) = scene["a"], scene[b]
+    rj = jverify_pair(cfg, jax.random.PRNGKey(2), la, ra, lb, rb, make_rig())
+    rt = _first(verify_pair_batch(
+        dataclasses.replace(TCFG, matcher="gather"), torch.Generator().manual_seed(2),
+        *(torch.from_numpy(v)[None] for v in (la, ra, lb, rb)), TRIG,
+    ))
+    assert bool(rt.accepted) == bool(rj.accepted) == (b == "b")
+    assert _gate(rt) == _gate(rj)
+    nj, nt = int(rj.n_matches), int(rt.n_matches)
+    assert abs(nt - nj) <= 0.02 * max(nj, 1), (nt, nj)
