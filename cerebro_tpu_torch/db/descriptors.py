@@ -19,6 +19,13 @@ Unlike the JAX version, which returns a new pytree per append, ``append``
 writes the ring in place. ``count`` and ``total`` are host integers: the
 host decides how many rows each batch holds, so reading them never waits on
 the device.
+
+On CUDA the search kernels load rows in 16-byte pieces, so a CUDA DB whose
+descriptor width ``dim`` is not a multiple of 8 stores each row
+zero-padded to the next multiple of 8 (``vectors`` is (N, width)), and
+queries enter detection padded the same way (``pad_queries``). Zeros add
+nothing to a dot product: scores and matches are those of the unpadded
+rows. ``dim`` stays the logical width.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ GID_INVALID = 2**31 - 1
 
 @dataclasses.dataclass
 class DescriptorDB:
-    vectors: torch.Tensor  # (capacity, D) bf16 or f32 unit descriptors
+    vectors: torch.Tensor  # (capacity, width) bf16 or f32 unit descriptors
     global_ids: torch.Tensor  # (capacity,) int32, GID_INVALID if empty
     count: int = 0  # number of valid rows (= min(total, capacity))
     total: int = 0  # cumulative appended entries (monotone)
+    logical_dim: int | None = None  # the descriptor width; None: width
 
     @property
     def capacity(self) -> int:
@@ -45,18 +53,36 @@ class DescriptorDB:
 
     @property
     def dim(self) -> int:
-        return self.vectors.shape[1]
+        """The descriptor width (columns past it are zero padding)."""
+        return self.vectors.shape[1] if self.logical_dim is None else self.logical_dim
+
+
+def row_width(dim: int, device) -> int:
+    """Stored row width of a ``dim``-wide DB on ``device``: ``dim`` rounded
+    up to a multiple of 8 on CUDA (16-byte rows for the kernels), else
+    ``dim``."""
+    return -(-dim // 8) * 8 if torch.device(device).type == "cuda" else dim
 
 
 def create(
     capacity: int, dim: int, dtype=torch.bfloat16, device="cuda"
 ) -> DescriptorDB:
     return DescriptorDB(
-        vectors=torch.zeros((capacity, dim), dtype=dtype, device=device),
+        vectors=torch.zeros((capacity, row_width(dim, device)), dtype=dtype, device=device),
         global_ids=torch.full(
             (capacity,), GID_INVALID, dtype=torch.int32, device=device
         ),
+        logical_dim=dim,
     )
+
+
+def pad_queries(db: DescriptorDB, queries: torch.Tensor) -> torch.Tensor:
+    """(Q, dim) queries zero-padded to the DB's row width (a no-op when the
+    rows are not padded)."""
+    if queries.shape[1] != db.dim:
+        raise ValueError(f"queries are {queries.shape[1]} wide, the DB holds {db.dim}")
+    pad = db.vectors.shape[1] - db.dim
+    return torch.nn.functional.pad(queries, (0, pad)) if pad else queries
 
 
 def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
@@ -68,6 +94,8 @@ def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
     """
     B = descs.shape[0]
     cap = db.capacity
+    if descs.shape[1] != db.dim:
+        raise ValueError(f"descriptors are {descs.shape[1]} wide, the DB holds {db.dim}")
     if B > cap:
         raise ValueError(f"batch {B} exceeds DB capacity {cap}")
     if not 0 <= n_new <= B:
@@ -79,7 +107,8 @@ def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
         j < n_new, db.total + j, torch.full_like(j, GID_INVALID)
     ).to(torch.int32)
     # in place: the ring rows and their ids are overwritten at the head
-    db.vectors[rows] = descs.to(device=dev, dtype=db.vectors.dtype)
+    # (padding columns, if any, stay zero)
+    db.vectors[rows, : db.dim] = descs.to(device=dev, dtype=db.vectors.dtype)
     db.global_ids[rows] = gids
     db.total += int(n_new)
     db.count = min(db.total, cap)

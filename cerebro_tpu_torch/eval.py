@@ -19,7 +19,7 @@ import torch
 
 from cerebro_tpu_torch.ops.umeyama import umeyama_rigid
 from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
-from cerebro_tpu_torch.utils.timing import StageTimer
+from cerebro_tpu_torch.utils.timing import StageTimer, device_trace
 
 
 def ate_rmse(
@@ -68,12 +68,12 @@ def run_sequence(
 ) -> RunReport:
     """Feed ``frames`` through ``pipe``, flush, and verify the candidates
     (``verify_pending`` with the pipeline's own VerifyConfig, the cascade
-    included)."""
+    included). With ``trace_dir`` the run is traced by torch.profiler (host
+    operators, and CUDA activity for a CUDA pipeline) and written there as
+    a Chrome ``*.trace.json``."""
     if trace_dir is not None:
-        raise NotImplementedError(
-            "run_sequence(trace_dir=...) is not ported yet (ROADMAP Queue 1: "
-            "item 5, a device trace through torch.profiler)"
-        )
+        with device_trace(trace_dir, cuda=pipe.device.type == "cuda"):
+            return run_sequence(pipe, frames, n_tracked_default, verify, max_frames, None)
     timer = StageTimer()
     n = 0
     t0 = time.perf_counter()

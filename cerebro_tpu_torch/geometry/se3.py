@@ -55,6 +55,38 @@ def rot_to_ypr(R: torch.Tensor) -> torch.Tensor:
     return torch.stack([yaw, pitch, roll], dim=-1)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (w,x,y,z) -> 3x3 rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], dim=-1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], dim=-1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], dim=-1),
+        ],
+        dim=-2,
+    )
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w,x,y,z) quaternions."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        dim=-1,
+    )
+
+
 def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
     """3x3 rotation matrix -> unit quaternion (w,x,y,z), branch-free
     Shepperd-style selection (the candidate with the largest pivot)."""

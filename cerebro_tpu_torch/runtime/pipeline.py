@@ -41,6 +41,8 @@ from cerebro_tpu_torch.db.keyframes import KeyframeStore
 from cerebro_tpu_torch.geometry import stereo
 from cerebro_tpu_torch.kidnap import KidnapMonitor
 from cerebro_tpu_torch.loop import detector, hypothesis, topk_methods
+from cerebro_tpu_torch.models.gist import gist_descriptors
+from cerebro_tpu_torch.models.wpca import load_wpca, whitened_describe_fn
 from cerebro_tpu_torch.ops import similarity
 from cerebro_tpu_torch.posegraph import (
     PoseGraph,
@@ -152,6 +154,9 @@ class CerebroPipeline:
         if describe_fn is not None:
             self.describe_fn = describe_fn
             dim = describe_dim or dcfg.num_clusters * dcfg.trunk_dim
+        elif dcfg.kind == "gist":
+            dim = dcfg.num_clusters * dcfg.trunk_dim
+            self.describe_fn = lambda imgs, _d=dim: gist_descriptors(imgs, dim=_d)
         else:
             # the reference's trained flagship weights (models/mobilenet.py)
             from cerebro_tpu_torch.models.mobilenet import load_ported_params, ported_forward
@@ -164,6 +169,12 @@ class CerebroPipeline:
             self.describe_fn = lambda imgs: ported_forward(
                 self.params, imgs, dtype=pdtype, input_scale=scale
             )
+        if dcfg.wpca_artifact:
+            # the ReljaNetVLAD shape: net -> WPCA whitening -> L2
+            # (ref scripts/whole_image_desc_compute_server.py:62-165)
+            wp = load_wpca(dcfg.wpca_artifact)
+            self.describe_fn = whitened_describe_fn(self.describe_fn, wp)
+            dim = wp.out_dim
         self.db = ddb.create(self.cfg.loop.db_capacity, dim, device=self.device)
         lcfg = self.cfg.loop
         self.det_state = detector.init_state(self.device)
@@ -209,13 +220,11 @@ class CerebroPipeline:
 
     def _check_supported(self, mesh, describe_fn):
         cfg = self.cfg
-        if describe_fn is None and cfg.descriptor.kind != "ported":
+        if describe_fn is None and cfg.descriptor.kind not in ("ported", "gist"):
             _not_ported(
                 f"descriptor kind {cfg.descriptor.kind!r}",
-                "item 2, models/gist.py and models/wpca.py",
+                "item 7, models/netvlad.py and models/descriptor.py",
             )
-        if cfg.descriptor.wpca_artifact:
-            _not_ported("the WPCA descriptor stage", "item 2, models/wpca.py")
         if cfg.loop.quantized:
             _not_ported("the int8-quantized DB", "item 7, the int8 DB")
         if mesh is not None:
@@ -329,7 +338,8 @@ class CerebroPipeline:
         gidx = torch.arange(row0, row0 + B, dtype=torch.int32, device=self.device)
         qvalid = torch.arange(B, device=self.device) < n_valid
         ddb.append(self.db, descs, n_valid)  # in place: the ring head advances
-        deferred = self._run_method(descs, gidx, qvalid, n_valid)
+        # queries padded as the DB's rows are (a CUDA DB of width % 8 != 0)
+        deferred = self._run_method(ddb.pad_queries(self.db, descs), gidx, qvalid, n_valid)
         self.db_gid_to_store.extend(store_idx[:n_valid])
         self.store.mark_described(np.asarray(store_idx[:n_valid]))
         self._deferred_det.append(deferred)

@@ -72,3 +72,23 @@ class StageTimer:
                 out[name]["first_ms"] = 1e3 * buf[0]
                 out[name]["warmup_excluded"] = skip_first
         return out
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, cuda: bool):
+    """torch.profiler trace around a block, host operators always and CUDA
+    activity when ``cuda``, exported on exit as a Chrome trace
+    ``<log_dir>/trace_<time>_<pid>.trace.json`` (open in chrome://tracing
+    or Perfetto). Yields the path it will write."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(
+        log_dir, f"trace_{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.trace.json"
+    )
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with profile(activities=acts) as prof:
+        yield path
+    prof.export_chrome_trace(path)

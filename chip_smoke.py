@@ -4,6 +4,7 @@
     python3 chip_smoke.py               # every phase: the run that counts
     python3 chip_smoke.py --phase k3    # K3 alone, an iteration aid
     python3 chip_smoke.py --phase photo # the 1,000-frame photo-world run
+    python3 chip_smoke.py --phase euroc # the EuRoC entry point's phase alone
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -81,12 +82,47 @@ also reported):
             tier-2 verify call of the pipelines under torch.profiler, and
             one optimize_trajectory call: host and device ms, device idle
             share, device operations per call, top operators;
+  euroc     the EuRoC entry point on an ASL folder this script writes from
+            the photo world (400 frames over 2 laps, no kidnap, low-passed
+            by a 1-px Gaussian; PNGs from its own encoder; a pinhole rig
+            yaml at the world's intrinsics with EuRoC cam0's radtan
+            distortion, 0.11 m baseline; raw images made by running
+            rectification backwards), in three runs: (1)
+            cerebro_tpu_torch.run_euroc.main with the default config and
+            stride (every 2nd frame), --descriptor ported --ate
+            --odom-drift 0.05 --trace: exit 0, the report's keys and frame
+            count, K1 once per detect batch, K3 launched, one trace file
+            holding one kernel event per K1 and K3 launch, a finite
+            ate_after (edges printed, not gated: the default accept gate
+            of 800 accepts nothing at 240x320); (2) teach and repeat at
+            pipeline_photo's settings: lap 1 through rig_config,
+            StereoRectifier, EurocSequence and eval.run_sequence, saved
+            with save_pipeline_state, loaded into a fresh pipeline, lap 2
+            run against it: at least one edge into the loaded map, every
+            edge within 5 deg / 0.5 m of ground truth, K2 once per detect
+            batch, K3 launched, the rectified frames within 3 grey levels
+            per pixel (mean) of the images they were made from, 16-pixel
+            border left out; host ms per frame of PNG decoding,
+            rectification and the pipeline; (3) both laps at stride 2,
+            detection only, with kind="gist" (K2 once per batch, and one
+            top-3 call on its DB, D = 4,096, against the plain top-k),
+            then with a WPCA to 191 dimensions (WPCA_AB.json's width)
+            fitted on lap 1's ported descriptors and Method A top-1 (K1
+            once per batch on 192-wide rows): finite unit descriptors, a
+            DB of 191 logical columns. Then K1 (at run 1's 29,184 x 8,192
+            DB shape, filled with the taught rows), K2 (a top-3 call on
+            the repeat DB), K3 (four verified pairs) and K1 at D=191
+            against their plain versions: gids exact, scores within 1e-3,
+            with their times;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
-            pipeline, K2 in pipeline_topk and pipeline_photo, K3 in all
-            three), error against its
-            plain version, kernel / plain / library times and the bound;
-            K2's also carries the top-3 search_topk call's times and its
-            one-pass bound.
+            pipeline and euroc, K2 in pipeline_topk, pipeline_photo and
+            euroc, K3 in all four), error against its
+            plain version (the largest over every shape it was held at),
+            kernel / plain / library times and the bound; K2's also
+            carries the top-3 search_topk call's times and its one-pass
+            bound, and the gist run's call at D = 4,096 (gist_call_*);
+            the last entry, k1_d191, is K1 at D=191 with the euroc runs'
+            launches.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises; the script exits non-zero without CUDA.
@@ -96,6 +132,11 @@ failed check raises; the script exits non-zero without CUDA.
 of the depth_pipeline_rectified call) and the same last two lines. It is
 for iterating on K3 and for timing K3 of two trees in one call; it drives
 no main-path run, so its result does not replace the full run's.
+
+``--phase euroc`` builds every kernel and runs the ``device`` and ``euroc``
+phases, then a kernels line of the euroc runs alone (K1, K2, K3 and
+k1_d191, with the euroc phase's checks and launches) and the last two
+lines.
 
 ``--phase photo`` builds every kernel and runs the ``device`` phase, the
 ``k2`` checks with the photo shape at this run's 2,048-row DB, and
@@ -133,6 +174,8 @@ FRAMES, LAPS = 400, 2.0  # the pipeline stream: lap 2 revisits lap 1
 TOPK_FRAMES = 400  # the top-k stream: 2 laps with a kidnap
 PHOTO_FRAMES, PHOTO_LAPS = 400, 1.4  # the 1,000-frame, 3.5-lap spacing
 PHOTO_FULL_FRAMES, PHOTO_FULL_LAPS = 1000, 3.5  # bench_e2e.py's photo run
+EUROC_FRAMES, EUROC_LAPS = 400, 2.0  # the EuRoC fixture: lap 2 revisits lap 1
+ROUNDTRIP_LIMIT = 3.0  # grey levels per pixel, rectified against the image it came from
 
 
 _last_emit = time.perf_counter()
@@ -398,6 +441,26 @@ def phase_k3(device, world) -> dict:
     R = torch.from_numpy(np.stack([p[1] for p in pairs]).astype(np.float32)).to(device)
     B, H, W = L.shape
     nd, blk = 64, 21
+    out = {"phase": "k3", "B": B, "H": H, "W": W, "num_disp": nd, "block": blk,
+           **k3_measure(L, R, nd, blk)}
+    stereo_kernel.K3.launches = 0
+    pts, ok, _ = stereo.depth_pipeline_rectified(L, R, ren.rig(), num_disp=nd, block=blk)
+    torch.cuda.synchronize()
+    out["depth_pipeline_launches"] = stereo_kernel.K3.launches
+    if out["depth_pipeline_launches"] != 1 or not bool(torch.isfinite(pts[ok]).all()):
+        raise AssertionError(f"depth_pipeline_rectified: {out['depth_pipeline_launches']} K3 launches")
+    return out
+
+
+def k3_measure(L, R, nd: int = 64, blk: int = 21) -> dict:
+    """K3 on the (B, H, W) pair stacks L, R against the plain block_match
+    (masks agree on >= 99.9% of pixels, |disparity difference| <= 1e-3
+    where both are valid), its CUDA-event and profiler times, the plain
+    time and the bound."""
+    from cerebro_tpu_torch.geometry import stereo
+    from cerebro_tpu_torch.ops import stereo_kernel
+
+    B, H, W = L.shape
     d_k, v_k = stereo_kernel.block_match_cuda(L, R, num_disp=nd, block=blk)
     d_p, v_p = stereo.block_match(L, R, num_disp=nd, block=blk)
     torch.cuda.synchronize()
@@ -409,37 +472,38 @@ def phase_k3(device, world) -> dict:
     nbytes = 2 * B * H * W * 4 + B * H * W * (4 + 1)
     b_ms, b_by = bound(nbytes, k3_ops(B, H, W, nd), F32_OPS_PER_S)
     out = {
-        "phase": "k3", "B": B, "H": H, "W": W, "num_disp": nd, "block": blk, **cmp,
+        **cmp,
         "kernel_ms": cuda_ms(lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), 50),
-        "kernel_device_ms": profiled_kernel_ms(
-            lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), "stereo_bm", 20
-        ),
         "plain_ms": cuda_ms(lambda: stereo.block_match(L, R, nd, blk), 5),
         "library_ms": None,
         "bound_ms": b_ms,
         "bound_by": b_by,
+        "kernel_device_ms": profiled_kernel_ms(
+            lambda: stereo_kernel.block_match_cuda(L, R, nd, blk), "stereo_bm", 20
+        ),
     }
-    stereo_kernel.K3.launches = 0
-    pts, ok, _ = stereo.depth_pipeline_rectified(L, R, ren.rig(), num_disp=nd, block=blk)
-    torch.cuda.synchronize()
-    out["depth_pipeline_launches"] = stereo_kernel.K3.launches
-    if out["depth_pipeline_launches"] != 1 or not bool(torch.isfinite(pts[ok]).all()):
-        raise AssertionError(f"depth_pipeline_rectified: {out['depth_pipeline_launches']} K3 launches")
     return out
 
 
 def profiled_kernel_ms(fn, name: str, reps: int) -> float:
     """Mean device time of the kernels whose name contains ``name`` over
     ``reps`` calls of ``fn`` under torch.profiler: the kernel alone, with
-    no host gap between launches."""
-    from torch.profiler import ProfilerActivity, profile
+    no host gap between launches. The recorded cycle follows a warm-up
+    cycle of 5 x ``reps`` calls whose events are dropped: once a process
+    has run long traces (run_euroc's ``--trace``, the profile phase), a
+    session's first kernels after tracing starts can be missing from it,
+    and the warm-up cycle takes that loss."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for n in (5 * reps, reps):  # the warm-up cycle, then the recorded one
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
     times = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
     if len(times) != reps:
         raise AssertionError(f"the trace holds {len(times)} {name} kernels for {reps} calls")
@@ -486,9 +550,6 @@ def phase_pipeline(device, world, n_frames: int, laps: float) -> dict:
     torch.cuda.synchronize()
     t_verify = time.perf_counter() - t0
 
-    n = pipe.db.count
-    rows = pipe.db.vectors[:n].float()
-    norms = rows.norm(dim=1)
     errs = edge_errors(pipe, seq)
     reasons: dict = {}
     for r in pipe.rejected_candidates:
@@ -520,9 +581,7 @@ def phase_pipeline(device, world, n_frames: int, laps: float) -> dict:
         "detect_batches": stats["detect"]["count"],
         "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
         "edge_trans_err_m_max": max((t for _, t in errs), default=None),
-        "desc_finite": bool(torch.isfinite(rows).all()),
-        "desc_norm_min": float(norms.min()),
-        "desc_norm_max": float(norms.max()),
+        **desc_stats(pipe),
         "ingest_s": t_ingest,
         "verify_s": t_verify,
         # means without each stage's first call (one-time set-up), and
@@ -965,6 +1024,508 @@ def count_cg_matvecs():
         optimizer._cg = real
 
 
+# ---------------------------------------------------------------------------
+# The EuRoC entry point: an ASL folder written from the photo world
+# ---------------------------------------------------------------------------
+
+# EuRoC cam0's radtan coefficients (configs/euroc/cam0_pinhole.yaml), put on
+# the photo world's pinhole so rectification has real distortion to undo
+EUROC_RADTAN = (-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05)
+EUROC_STAMP0_NS = 1_403_636_579_763_555_584  # MH_01_easy's first cam0 stamp
+
+
+def png_gray(img: np.ndarray, paeth: bool = False) -> bytes:
+    """A minimal 8-bit grayscale PNG: row 0 filtered None, the others Up
+    (or, with ``paeth``, every row Paeth: the filter whose decoding is
+    sequential along a row)."""
+    import struct
+    import zlib
+
+    H, W = img.shape
+    rows = np.empty((H, W + 1), np.uint8)
+    rows[:, 0] = 2
+    rows[0, 0] = 0
+    rows[:, 1:] = img
+    rows[1:, 1:] -= img[:-1]  # Up: wraps mod 256
+    if paeth:
+        x = np.pad(img.astype(np.int16), ((1, 0), (1, 0)))
+        a, b, c = x[1:, :-1], x[:-1, 1:], x[:-1, :-1]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        rows[:, 0] = 4
+        rows[:, 1:] = (img - pred).astype(np.uint8)
+
+    def chunk(ctype: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + ctype + data + struct.pack(">I", zlib.crc32(ctype + data))
+
+    return (
+        b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1)) + chunk(b"IEND", b"")
+    )
+
+
+def _opencv_matrix(name: str, T: np.ndarray) -> str:
+    data = ", ".join(f"{v:.9g}" for v in np.asarray(T, np.float64).reshape(-1))
+    return f"{name}: !!opencv-matrix\n   rows: 4\n   cols: 4\n   dt: d\n   data: [{data}]\n"
+
+
+def low_pass(img: np.ndarray, sigma: float = 1.0) -> np.ndarray:
+    """``img`` (float32) through a separable Gaussian, edges reflected."""
+    r = int(np.ceil(3 * sigma))
+    k = np.exp(-np.arange(-r, r + 1) ** 2 / (2 * sigma * sigma))
+    k /= k.sum()
+    H, W = img.shape
+    x = np.pad(img.astype(np.float32), r, mode="reflect")
+    x = sum(w * x[:, i : i + W] for i, w in enumerate(k))
+    return sum(w * x[i : i + H] for i, w in enumerate(k)).astype(np.float32)
+
+
+def write_euroc_fixture(root: str, n_frames: int, laps: float):
+    """An ASL folder (cam0, cam1, their data.csv, state_groundtruth_estimate0)
+    and a rig yaml for the photo world: ``n_frames`` frames over ``laps``
+    laps with no kidnap. The rig is a pinhole at the world's intrinsics
+    (fx = fy = 300, 240x320) with EuRoC cam0's radtan distortion, cam1
+    0.11 m along x and not rotated. The raw images are rectification run
+    backwards: each raw pixel is lifted through the distorted camera,
+    projected by the rectified pinhole and sampled (bilinear) from the
+    rendered frame, low-passed first (a Gaussian of sigma 1 px: the photo
+    world's texture aliases, and sampling it twice, raw then rectified,
+    would alone put ~11 grey levels per pixel between exact maps' output
+    and the frame). The ground truth is the body pose (gravity-aligned,
+    the camera mount removed), as EuRoC's is. Returns (mav0, rig yaml,
+    sequence, the low-passed rendered frames)."""
+    import os
+
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.geometry import cameras, se3
+    from cerebro_tpu_torch.geometry.stereo import remap_bilinear
+
+    world = pw.PhotoWorld.create(seed=0)
+    seq = pw.make_photo_sequence(n_frames=n_frames, laps=laps, kidnap_at=1.0)
+    ren = sw.Renderer(world)
+    frames = [tuple(low_pass(im) for im in ren.stereo(float(x), float(y))) for x, y in seq.xy]
+    H, W, f, cx, cy = sw.IMG_H, sw.IMG_W, sw.FX, sw.CX, sw.CY
+
+    cam = cameras.make_pinhole(f, f, cx, cy, EUROC_RADTAN, width=W, height=H)
+    vv, uu = torch.meshgrid(torch.arange(H, dtype=torch.float32),
+                            torch.arange(W, dtype=torch.float32), indexing="ij")
+    ray = cameras.lift(cam, torch.stack([uu, vv], -1))
+    src = torch.stack([f * ray[..., 0] / ray[..., 2] + cx, f * ray[..., 1] / ray[..., 2] + cy], -1)
+
+    def raw(img):
+        out = remap_bilinear(torch.from_numpy(img), src)
+        return np.clip(np.rint(out.numpy()), 0, 255).astype(np.uint8)
+
+    mav0 = os.path.join(root, "mav0")
+    ns = [EUROC_STAMP0_NS + int(round(float(t) * 1e9)) for t in seq.stamps]
+    for c in (0, 1):
+        d = os.path.join(mav0, f"cam{c}", "data")
+        os.makedirs(d)
+        with open(os.path.join(mav0, f"cam{c}", "data.csv"), "w") as fh:
+            fh.write("#timestamp [ns],filename\n")
+            for i, stamp in enumerate(ns):
+                fh.write(f"{stamp},{stamp}.png\n")
+                with open(os.path.join(d, f"{stamp}.png"), "wb") as img_fh:
+                    img_fh.write(png_gray(raw(frames[i][c])))
+    gt_dir = os.path.join(mav0, "state_groundtruth_estimate0")
+    os.makedirs(gt_dir)
+    w_T_body = seq.gt_poses @ np.linalg.inv(sw.body_T_cam())[None]
+    q = se3.rot_to_quat(torch.from_numpy(w_T_body[:, :3, :3].astype(np.float32))).numpy()
+    with open(os.path.join(gt_dir, "data.csv"), "w") as fh:
+        fh.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                 "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n")
+        for i, stamp in enumerate(ns):
+            p = w_T_body[i, :3, 3]
+            fh.write(f"{stamp},{p[0]:.9g},{p[1]:.9g},{p[2]:.9g},"
+                     + ",".join(f"{v:.9g}" for v in q[i]) + "\n")
+
+    for c in (0, 1):
+        with open(os.path.join(root, f"cam{c}.yaml"), "w") as fh:
+            fh.write(
+                "%YAML:1.0\n---\nmodel_type: PINHOLE\n"
+                f"camera_name: cam{c}\nimage_width: {W}\nimage_height: {H}\n"
+                "distortion_parameters:\n"
+                + "".join(f"   {k}: {v:.9g}\n" for k, v in zip(("k1", "k2", "p1", "p2"), EUROC_RADTAN))
+                + f"projection_parameters:\n   fx: {f}\n   fy: {f}\n   cx: {cx}\n   cy: {cy}\n"
+            )
+    b_T_c1 = np.eye(4)
+    b_T_c1[0, 3] = sw.BASELINE
+    rig = os.path.join(root, "rig.yaml")
+    with open(rig, "w") as fh:
+        fh.write(
+            "%YAML:1.0\nnum_of_cam: 2\n"
+            'cam0_calib: "cam0.yaml"\ncam1_calib: "cam1.yaml"\n'
+            f"image_width: {W}\nimage_height: {H}\n"
+            + _opencv_matrix("body_T_cam0", np.eye(4)) + _opencv_matrix("body_T_cam1", b_T_c1)
+        )
+    return mav0, rig, seq, frames
+
+
+def new_times() -> dict:
+    return {"decode_s": 0.0, "rectify_s": 0.0, "frames": 0, "roundtrip_err": []}
+
+
+def rectified_frames(frames, rect, times: dict, rendered=None, border: int = 16):
+    """Loader frames decoded and rectified, the seconds of each summed into
+    ``times``; with ``rendered`` (stamp -> the image the fixture made the
+    raw left image from) every 10th frame's rectified left is held against
+    that image away from a ``border``-pixel margin: the mean grey-level
+    difference per pixel goes to ``roundtrip_err``."""
+    from cerebro_tpu_torch.run_euroc import RectFrame
+
+    for i, f in enumerate(frames):
+        t0 = time.perf_counter()
+        left_raw, right_raw = f.left(), f.right()
+        t1 = time.perf_counter()
+        left, right = rect.rectify(left_raw, right_raw)
+        t2 = time.perf_counter()
+        times["decode_s"] += t1 - t0
+        times["rectify_s"] += t2 - t1
+        times["frames"] += 1
+        if rendered is not None and i % 10 == 0:
+            b = border
+            times["roundtrip_err"].append(float(np.abs(left - rendered(f.stamp))[b:-b, b:-b].mean()))
+        yield RectFrame(f.stamp, f.pose, left, right)
+
+
+def k1_measure(q_k, db_k, q_p, db_p, lim, gids) -> dict:
+    """K1 on (q_k, db_k) against its plain version on (q_p, db_p) (the same
+    rows unpadded, or the same tensors): gids exact, max within 1e-3; the
+    kernel, plain and library times and the bound of the call as made."""
+    from cerebro_tpu_torch.ops import similarity as sim
+
+    km, kg = sim.max_and_argmax_cuda(q_k, db_k, lim, gids)
+    pm, pg = sim.max_and_argmax_plain(q_p, db_p, lim, gids)
+    torch.cuda.synchronize()
+    err = float((km - pm).abs().max())
+    if not torch.equal(kg, pg) or err > 1e-3:
+        raise AssertionError(f"K1 at D={db_p.shape[1]}: gids {kg.tolist()} vs {pg.tolist()}, err {err}")
+    Q, D = q_k.shape
+    N = db_k.shape[0]
+    q16 = q_k.to(torch.bfloat16)
+    valid = gids[None, :] < lim[:, None]
+
+    def library():
+        s = torch.matmul(q16, db_k.T).float()
+        return torch.where(valid, s, torch.full_like(s, sim.NEG_INF)).max(dim=1)
+
+    b_ms, b_by = bound(N * D * 2 + Q * D * 2 + Q * 4 + N * 4 + Q * 8,
+                       2.0 * Q * N * db_p.shape[1], BF16_OPS_PER_S)
+    return {
+        "Q": Q, "N": N, "D": db_p.shape[1], "row_width": D, "max_abs_err": err, "gids_exact": True,
+        "kernel_ms": cuda_ms(lambda: sim.max_and_argmax_cuda(q_k, db_k, lim, gids), 20),
+        "plain_ms": cuda_ms(lambda: sim.max_and_argmax_plain(q_p, db_p, lim, gids), 5),
+        "library_ms": cuda_ms(library, 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def k2_measure(q, db, lim, gids, k: int) -> dict:
+    """One top-k search_topk call on K2 against the plain dense top-k on
+    every slot: gids exact, values within 1e-3; call times and bound."""
+    from cerebro_tpu_torch.ops import similarity as sim
+
+    kv, ki = sim.search_topk_cuda(q, db, lim, gids, k=k)
+    pv, pi = sim.search_topk_plain(q, db, lim, gids, k=k)
+    torch.cuda.synchronize()
+    err = float((kv - pv).abs().max())
+    if not torch.equal(ki, pi) or err > 1e-3:
+        raise AssertionError(f"K2 top-{k} differs from plain: err {err}")
+    Q, D = q.shape
+    N = db.shape[0]
+    q16 = q.to(torch.bfloat16)
+    valid = gids[None, :] < lim[:, None]
+
+    def library():
+        s = torch.matmul(q16, db.T).float()
+        return torch.topk(torch.where(valid, s, torch.full_like(s, sim.NEG_INF)), k, dim=1)
+
+    b_ms, b_by = bound(N * D * 2 + Q * D * 2 + Q * 4 + N * 4 + Q * k * 8,
+                       2.0 * Q * N * D, BF16_OPS_PER_S)
+    return {
+        "Q": Q, "N": N, "D": D, "k": k, "max_abs_err": err, "topk_all_slots_exact": True,
+        "kernel_ms": cuda_ms(lambda: sim.search_topk_cuda(q, db, lim, gids, k=k), 20),
+        "plain_ms": cuda_ms(lambda: sim.search_topk_plain(q, db, lim, gids, k=k), 5),
+        "library_ms": cuda_ms(library, 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
+
+
+def db_queries(pipe, n: int, seed: int):
+    """``n`` rows of the pipeline's DB as queries (logical width, f32) with
+    limits at the DB's total: (queries, padded queries, limits)."""
+    from cerebro_tpu_torch.db import descriptors as ddb
+
+    g = torch.Generator().manual_seed(seed)
+    rows = torch.randperm(pipe.db.count, generator=g)[:n].to(pipe.device)
+    q = pipe.db.vectors[rows, : pipe.db.dim].float()
+    lim = torch.full((n,), pipe.db.total, dtype=torch.int32, device=pipe.device)
+    return q, ddb.pad_queries(pipe.db, q), lim
+
+
+def desc_stats(pipe) -> dict:
+    rows = pipe.db.vectors[: pipe.db.count].float()
+    norms = rows.norm(dim=1)
+    return {
+        "desc_finite": bool(torch.isfinite(rows).all()),
+        "desc_norm_min": float(norms.min()),
+        "desc_norm_max": float(norms.max()),
+    }
+
+
+def check_unit_descriptors(r: dict, what: str):
+    check(r["desc_finite"] and abs(r["desc_norm_min"] - 1) <= 1e-2
+          and abs(r["desc_norm_max"] - 1) <= 1e-2, f"{what}: descriptors are not finite unit vectors")
+
+
+def trace_kernel_counts(path: str, names) -> dict:
+    """Kernel events in a Chrome trace whose name contains each of ``names``."""
+    import json as _json
+
+    with open(path) as fh:
+        events = _json.load(fh)["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return {n: sum(n in k for k in kernels) for n in names}
+
+
+def euroc_one_command(mav0, rig_yaml, tmp, n_frames) -> dict:
+    """Run 1: ``run_euroc.main`` on the fixture with the default config and
+    stride, ``--descriptor ported --ate --odom-drift 0.05 --trace``; the
+    trace must hold one kernel event per launch of K1 and K3."""
+    import json as _json
+    import os
+
+    from cerebro_tpu_torch import run_euroc
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+
+    trace_dir, report_dir = os.path.join(tmp, "trace"), os.path.join(tmp, "out")
+    argv = [mav0, "--out", report_dir, "--config", rig_yaml, "--descriptor", "ported",
+            "--ate", "--odom-drift", "0.05", "--trace", trace_dir]
+    stride = run_euroc.parse_args(argv).stride
+    K1.launches = K2.launches = K3.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):  # stdout: one JSON object per line
+        rc = run_euroc.main(argv)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(report_dir, "report.json")) as fh:
+        doc = _json.load(fh)
+    rep, st = doc["report"], doc["status"]
+    traces = [os.path.join(trace_dir, x) for x in os.listdir(trace_dir) if x.endswith(".trace.json")]
+    run = {
+        "exit": rc, "stride": stride, "wall_s": wall, "report_keys": sorted(doc),
+        "n_frames": rep["n_frames"],
+        # verify_pending consumed every candidate: the pairs it verified
+        "verified_pairs": st["loop_edges"] + st["rejected_candidates"],
+        # the default accept gate (800) accepts nothing at 240x320 (ROADMAP Queue 3 item 3)
+        "edges": rep["n_loop_edges"], "escalated_to_tier2": st["escalated_to_tier2"],
+        "ate_before": rep["ate_before"], "ate_after": rep["ate_after"],
+        "detect_batches": st["timings_ms"]["detect"]["count"],
+        "k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches,
+        "trace_files": len(traces),
+        "trace_mb": sum(os.path.getsize(x) for x in traces) / 2**20,
+        "timings_ms": {k: v["mean_ms"] for k, v in rep["timings"].items()},
+    }
+    check(rc == 0, f"run_euroc exited {rc}")
+    check(set(doc) == {"report", "status", "loop_edges", "found_loops"}, f"report.json keys {sorted(doc)}")
+    check(rep["n_frames"] == len(range(0, n_frames, stride)), f"run_euroc read {rep['n_frames']} frames")
+    check(K1.launches == run["detect_batches"] and K2.launches == 0,
+          f"run_euroc: K1 launched {K1.launches} times for {run['detect_batches']} detect batches")
+    check(K3.launches > 0, "run_euroc never launched K3")
+    check(len(traces) == 1, f"run_euroc --trace wrote {traces}")
+    # each K1 launch is one score_topk_partial and one score_topk_merge kernel
+    t0 = time.perf_counter()
+    run["trace_kernels"] = trace_kernel_counts(traces[0], ("score_topk_partial", "stereo_bm"))
+    run["trace_read_s"] = time.perf_counter() - t0
+    check(run["trace_kernels"] == {"score_topk_partial": K1.launches, "stereo_bm": K3.launches},
+          f"the trace holds {run['trace_kernels']} for {K1.launches} K1 and {K3.launches} K3 launches")
+    check(rep["ate_after"] is not None and np.isfinite(rep["ate_after"]), "run_euroc: no finite ate_after")
+    return run
+
+
+def phase_euroc(device):
+    """The EuRoC entry point on an ASL folder written from the photo world,
+    in three runs. Returns (the phase line, kernel checks at the runs'
+    shapes, each kernel's launches in the runs)."""
+    import itertools
+    import os
+    import tempfile
+
+    from cerebro_tpu_torch.config import CerebroConfig
+    from cerebro_tpu_torch.db import descriptors as ddb
+    from cerebro_tpu_torch.eval import run_sequence
+    from cerebro_tpu_torch.geometry.stereo import StereoRectifier
+    from cerebro_tpu_torch.io import load_pipeline_state, save_pipeline_state
+    from cerebro_tpu_torch.io.euroc import EurocSequence, decode_png_gray
+    from cerebro_tpu_torch.io.rig_config import load_rig_config
+    from cerebro_tpu_torch.models.wpca import fit_wpca, save_wpca
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    n_frames, laps = EUROC_FRAMES, EUROC_LAPS
+    out = {"phase": "euroc", "frames": n_frames, "laps": laps}
+    launches = {"K1": 0, "K2": 0, "K1_d191": 0, "K3": 0}
+    checks = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_euroc_") as tmp:
+        t0 = time.perf_counter()
+        mav0, rig_yaml, seq, rendered = write_euroc_fixture(tmp, n_frames, laps)
+        out["fixture_s"] = time.perf_counter() - t0
+        lap = int(round(n_frames / laps))  # frames per lap
+
+        # 1. the one-command path, as the JAX script runs it
+        run1 = euroc_one_command(mav0, rig_yaml, tmp, n_frames)
+        out["one_command"] = run1
+        launches["K1"] += run1["k1_launches"]
+        launches["K3"] += run1["k3_launches"]
+
+        # 2. teach (lap 1), save, load, repeat (lap 2) at bench_e2e.py's settings
+        spec = load_rig_config(rig_yaml)
+        rect = StereoRectifier(spec.cam0, spec.cam1, spec.c1_T_c0.astype(np.float32),
+                               out_hw=spec.image_hw, device=device)
+        euroc = EurocSequence(mav0)
+        index_of = {f.stamp: i for i, f in enumerate(euroc.frames())}
+        times = new_times()
+        cfg = photo_config(n_frames)
+        ckpt = os.path.join(tmp, "teach_state")
+        K1.launches = K2.launches = K3.launches = 0
+        teach = CerebroPipeline(cfg, rig=rect.rig, device=device)
+        t0 = time.perf_counter()
+        teach_rep = run_sequence(teach, rectified_frames(
+            itertools.islice(euroc.frames(), lap), rect, times,
+            rendered=lambda stamp: rendered[index_of[stamp]][0]))
+        save_pipeline_state(teach, ckpt)
+        t_teach = time.perf_counter() - t0
+        repeat = load_pipeline_state(ckpt, cfg=cfg, rig=rect.rig, device=device)
+        loaded = repeat.store.size
+        t0 = time.perf_counter()
+        repeat_rep = run_sequence(repeat, rectified_frames(
+            itertools.islice(euroc.frames(), lap, None), rect, times))
+        t_repeat = time.perf_counter() - t0
+        errs = edge_errors(repeat, seq)
+        detect_batches = (teach.timer.stats()["detect"]["count"]
+                          + repeat.timer.stats()["detect"]["count"])
+        n_repeat = repeat_rep.n_frames - loaded
+        run2 = {
+            "teach_frames": teach_rep.n_frames, "loaded_keyframes": loaded, "repeat_frames": n_repeat,
+            # verify_pending consumed every candidate: the pairs it verified
+            "verified_pairs": len(repeat.loop_edges) + len(repeat.rejected_candidates),
+            "edges": len(repeat.loop_edges),
+            "edges_to_loaded_map": sum(e.idx_prev < loaded <= e.idx_curr for e in repeat.loop_edges),
+            "escalated_to_tier2": repeat.escalated_to_tier2, "tier2_accepted": repeat.tier2_accepted,
+            "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
+            "edge_trans_err_m_max": max((t for _, t in errs), default=None),
+            "rectify_roundtrip_err_mean": float(np.mean(times["roundtrip_err"])),
+            "rectify_roundtrip_frames": len(times["roundtrip_err"]),
+            # host ms per stereo frame: both PNGs decoded, both images
+            # rectified, the pipeline's ingest (describe and detect amortized)
+            "png_decode_ms_per_frame": 1e3 * times["decode_s"] / times["frames"],
+            "rectify_ms_per_frame": 1e3 * times["rectify_s"] / times["frames"],
+            "pipeline_ms_per_frame": (teach_rep.timings["ingest"]["mean_ms"] * teach_rep.n_frames
+                                      + repeat_rep.timings["ingest"]["mean_ms"] * n_repeat)
+                                     / (teach_rep.n_frames + n_repeat),
+            "teach_s": t_teach, "repeat_s": t_repeat,
+            "repeat_verify_s": repeat_rep.timings["verify"]["mean_ms"] / 1e3,
+            "detect_batches": detect_batches,
+            "k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches,
+        }
+        out["teach_repeat"] = run2
+        launches["K2"] += K2.launches
+        launches["K3"] += K3.launches
+        check(run2["edges_to_loaded_map"] >= 1, "repeat: no edge from lap 2 into the loaded map")
+        check(run2["edge_rot_err_deg_max"] <= 5.0 and run2["edge_trans_err_m_max"] <= 0.5,
+              "repeat: an accepted edge is far from the ground-truth relative pose")
+        check(K2.launches == detect_batches and K1.launches == 0,
+              f"teach/repeat: K2 launched {K2.launches} times for {detect_batches} detect batches")
+        check(K3.launches > 0, "teach/repeat never launched K3")
+        check(run2["rectify_roundtrip_err_mean"] <= ROUNDTRIP_LIMIT,
+              f"rectified frames differ from the rendered ones by {run2['rectify_roundtrip_err_mean']} "
+              "grey levels")
+
+        # the decoder on a EuRoC-sized frame (480x752), Up- and Paeth-filtered
+        big_frame = np.tile(np.rint(rendered[0][0]).astype(np.uint8), (2, 3))[:480, :752]
+        for name, data in (("up", png_gray(big_frame)), ("paeth", png_gray(big_frame, paeth=True))):
+            check(np.array_equal(decode_png_gray(data), big_frame), f"PNG decoder ({name}) is not exact")
+            t0 = time.perf_counter()
+            for _ in range(5):
+                decode_png_gray(data)
+            run2[f"png_decode_ms_480x752_{name}"] = (time.perf_counter() - t0) * 1e3 / 5
+
+        # each kernel against its plain version at the shapes runs 1 and 2
+        # gave it: K2 on the repeat DB, K3 on four pairs' rectified images,
+        # K1 on a DB of run 1's default shape holding the taught rows
+        q, _, lim = db_queries(teach, cfg.runtime.descriptor_batch, seed=1)
+        checks["K2"] = k2_measure(q, repeat.db.vectors, lim, repeat.db.global_ids,
+                                  k=cfg.loop.candidates_per_query)
+        pairs = [repeat._load_pair(c) for c in (repeat.loop_edges + repeat.rejected_candidates)[:4]]
+        L = torch.from_numpy(np.stack([p[j] for p in pairs for j in (0, 2)])).to(device)
+        R = torch.from_numpy(np.stack([p[j] for p in pairs for j in (1, 3)])).to(device)
+        checks["K3"] = {"B": L.shape[0], **k3_measure(L, R)}
+        cap = CerebroConfig().loop.db_capacity  # run 1's DB
+        taught = teach.db.vectors[: teach.db.count]
+        big = taught.repeat(-(-cap // taught.shape[0]), 1)[:cap].contiguous()
+        gids = torch.arange(cap, dtype=torch.int32, device=device)
+        lim8 = torch.full((8,), cap, dtype=torch.int32, device=device)
+        checks["K1"] = k1_measure(q[:8], big, q[:8], big, lim8, gids)
+        del big
+
+        # 3. gist, then WPCA to the records' width (WPCA_AB.json: 191) fitted
+        # on lap 1's ported descriptors; detection only, both laps at stride 2
+        wpca_path = os.path.join(tmp, "wpca.npz")
+        wp = fit_wpca(teach.db.vectors[:lap, : teach.db.dim].float().cpu().numpy(), out_dim=191)
+        save_wpca(wp, wpca_path)
+        teach.close()
+        repeat.close()
+        configs = {
+            "gist": dataclasses.replace(cfg, descriptor=dataclasses.replace(cfg.descriptor, kind="gist")),
+            # Method A top-1, so K1 runs at D=191
+            "wpca": dataclasses.replace(
+                cfg, descriptor=dataclasses.replace(cfg.descriptor, wpca_artifact=wpca_path),
+                loop=dataclasses.replace(cfg.loop, candidates_per_query=1),
+            ),
+        }
+        run3 = {"wpca_out_dim": wp.out_dim}
+        for name, c in configs.items():
+            K1.launches = K2.launches = 0
+            pipe = CerebroPipeline(c, rig=rect.rig, device=device)
+            r = run_sequence(pipe, rectified_frames(euroc.frames(stride=2), rect, new_times()),
+                             verify=False)
+            stats = pipe.timer.stats()
+            describe = pipe.timer.stats(skip_first=1)["describe"]
+            res = run3[name] = {
+                "frames": r.n_frames, "descriptor_dim": pipe.db.dim,
+                "row_width": pipe.db.vectors.shape[1], "candidates": r.n_candidates,
+                "detect_batches": stats["detect"]["count"],
+                # launch cost per batch (no device sync), and the first
+                # batch's (gist draws its projection then)
+                "describe_ms": describe["mean_ms"], "describe_first_ms": describe.get("first_ms"),
+                "k1_launches": K1.launches, "k2_launches": K2.launches, **desc_stats(pipe),
+            }
+            check_unit_descriptors(res, name)
+            if name == "gist":
+                launches["K2"] += K2.launches
+                check(K2.launches == res["detect_batches"] and K1.launches == 0,
+                      f"gist: K2 launched {K2.launches} times for {res['detect_batches']} batches")
+                # K2 at the gist run's own shape (D = 4,096)
+                q, _, lim = db_queries(pipe, c.runtime.descriptor_batch, seed=2)
+                checks["K2_gist"] = k2_measure(q, pipe.db.vectors, lim, pipe.db.global_ids,
+                                               k=c.loop.candidates_per_query)
+            else:
+                launches["K1_d191"] += K1.launches
+                check(res["descriptor_dim"] == 191 and res["row_width"] == ddb.row_width(191, device),
+                      f"wpca: {res['descriptor_dim']} logical / {res['row_width']} stored columns")
+                check(K1.launches == res["detect_batches"] and K2.launches == 0,
+                      f"wpca: K1 launched {K1.launches} times for {res['detect_batches']} batches")
+                q, qp, lim = db_queries(pipe, c.runtime.descriptor_batch, seed=3)
+                checks["K1_d191"] = k1_measure(qp, pipe.db.vectors, q, pipe.db.vectors[:, :191],
+                                               lim, pipe.db.global_ids)
+            pipe.close()
+        out["gist_wpca"] = run3
+    out["kernel_checks"] = checks
+    return out, checks, launches
+
+
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
@@ -982,9 +1543,10 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3", "photo"), default="all",
+    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc"), default="all",
                     help="all: every phase (default); k3: build and check K3 alone; "
-                         "photo: pipeline_photo at 1,000 frames over 3.5 laps")
+                         "photo: pipeline_photo at 1,000 frames over 3.5 laps; "
+                         "euroc: the EuRoC entry point's phase and its kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1022,6 +1584,12 @@ def main(argv=None) -> int:
         photo_engine.close()
         return finish(smi)
 
+    if args.phase == "euroc":
+        euroc, checks, launches = phase_euroc(device)
+        emit(euroc)
+        emit({"kernels": euroc_kernel_entries(checks, launches)})
+        return finish(smi)
+
     world = sw.CircuitWorld.create(seed=0)
     if args.phase == "k3":
         k3 = phase_k3(device, world)
@@ -1050,8 +1618,7 @@ def main(argv=None) -> int:
     # an edge this far from the ground-truth relative pose is a wrong loop
     check(run["edge_rot_err_deg_max"] <= 5.0 and run["edge_trans_err_m_max"] <= 0.5,
           "an accepted loop edge is far from ground truth")
-    check(run["desc_finite"] and abs(run["desc_norm_min"] - 1) <= 1e-2
-          and abs(run["desc_norm_max"] - 1) <= 1e-2, "descriptors are not finite unit vectors")
+    check_unit_descriptors(run, "pipeline")
 
     topk, topk_engine, _, seq = phase_pipeline_topk(device, world, TOPK_FRAMES, LAPS)
     emit(topk)
@@ -1085,30 +1652,72 @@ def main(argv=None) -> int:
     topk_engine.close()
     photo_engine.close()
 
+    euroc, euroc_checks, euroc_launches = phase_euroc(device)
+    emit(euroc)
+
     main_k1 = k1["shapes"][0]
     main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["N"] == k2["N"] and x["k"] == k)
     k2_entry = kernel_entry("K2 score_topk (banned argmax; top-k call)",
                             "cerebro_tpu_torch/csrc/score_topk.cu",
                             "cerebro_tpu/ops/similarity.py:286",
-                            topk["k2_launches"] + photo["k2_launches"],
+                            topk["k2_launches"] + photo["k2_launches"] + euroc_launches["K2"],
                             max(x["max_abs_err"] for x in k2["shapes"]), main_k2)
     # the main path's K2 launch is a top-3 search_topk call
     k2_entry.update({key: main_k2[key] for key in (
         "k", "call_ms", "call_plain_ms", "call_library_ms", "call_bound_ms")})
-    emit({"kernels": [
+    k3_main = k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]
+                       + euroc_launches["K3"])
+    k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"])
+    kernels = [
         kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
-                     "cerebro_tpu/ops/similarity.py:98", run["k1_launches"],
-                     max(x["max_abs_err"] for x in k1["shapes"]), main_k1),
-        k2_entry,
-        k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]),
-    ]})
+                     "cerebro_tpu/ops/similarity.py:98", run["k1_launches"] + euroc_launches["K1"],
+                     max([x["max_abs_err"] for x in k1["shapes"]] + [euroc_checks["K1"]["max_abs_err"]]),
+                     main_k1),
+        k2_euroc_entry(k2_entry, euroc_checks),
+        k3_main,
+        euroc_kernel_entries(euroc_checks, euroc_launches)[-1],  # K1 at D=191
+    ]
+    check(all(e["launches"] > 0 for e in kernels), "a kernel of the main path never launched")
+    emit({"kernels": kernels})
     return finish(smi)
+
+
+def euroc_kernel_entries(checks: dict, launches: dict) -> list:
+    """The kernels line of the euroc phase: K1, K2, K3 at the shapes its
+    runs gave them, and K1 at D=191 (rows padded to 192), last."""
+    entries = [
+        kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
+                     "cerebro_tpu/ops/similarity.py:98", launches["K1"],
+                     checks["K1"]["max_abs_err"], checks["K1"]),
+        k2_euroc_entry(kernel_entry(
+            "K2 score_topk (top-k call)", "cerebro_tpu_torch/csrc/score_topk.cu",
+            "cerebro_tpu/ops/similarity.py:286", launches["K2"], 0.0, checks["K2"]), checks),
+        k3_entry(checks["K3"], launches["K3"]),
+        kernel_entry("k1_d191", "cerebro_tpu_torch/csrc/score_topk.cu",
+                     "cerebro_tpu/ops/similarity.py:98", launches["K1_d191"],
+                     checks["K1_d191"]["max_abs_err"], checks["K1_d191"]),
+    ]
+    check(all(e["launches"] > 0 for e in entries), "a kernel of the euroc runs never launched")
+    return entries
+
+
+def k2_euroc_entry(entry: dict, checks: dict) -> dict:
+    """K2's kernels-line entry with the euroc runs' two K2 shapes folded in:
+    its error the largest of the entry's and theirs, and the gist run's
+    top-3 call (D = 4,096) beside the repeat DB's (D = 8,192)."""
+    entry["max_abs_err"] = max(entry["max_abs_err"], checks["K2"]["max_abs_err"],
+                               checks["K2_gist"]["max_abs_err"])
+    g = checks["K2_gist"]
+    entry.update({"gist_D": g["D"], "gist_call_ms": g["kernel_ms"], "gist_call_plain_ms": g["plain_ms"],
+                  "gist_call_library_ms": g["library_ms"], "gist_call_bound_ms": g["bound_ms"]})
+    return entry
 
 
 def k3_entry(k3: dict, launches: int) -> dict:
     entry = kernel_entry("K3 stereo_bm", "cerebro_tpu_torch/csrc/stereo_bm.cu",
                          "cerebro_tpu/ops/stereo_pallas.py:53", launches, k3["max_abs_err"], k3)
-    entry["device_ms"] = k3["kernel_device_ms"]
+    if "kernel_device_ms" in k3:
+        entry["device_ms"] = k3["kernel_device_ms"]
     return entry
 
 

@@ -30,6 +30,14 @@ import cerebro_tpu_torch.loop.hypothesis
 import cerebro_tpu_torch.loop.topk_methods
 import cerebro_tpu_torch.photoworld
 import cerebro_tpu_torch.utils.jaxrand
+import cerebro_tpu_torch.geometry.cameras
+import cerebro_tpu_torch.io
+import cerebro_tpu_torch.io.euroc
+import cerebro_tpu_torch.io.rig_config
+import cerebro_tpu_torch.models.gist
+import cerebro_tpu_torch.models.wpca
+import cerebro_tpu_torch.utils.plot
+import cerebro_tpu_torch.run_euroc
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))

@@ -12,10 +12,12 @@ exact duplicate rows across tile and block edges, banned lists of 1 and 8
 gids, every top-k list size, heights that are no multiple of the row band,
 narrow and wide images, nd at the kernel's limit, small and large blocks,
 the texture wrap at x = 0, more blocks than the card holds at once, float
-images); chip_smoke.py covers the main path's. Two tests hold properties
+images, a DB of a descriptor width that is no multiple of 8, stored
+padded); chip_smoke.py covers the main path's. Three tests hold
+properties
 of the plain PyTorch code on the card: the feature filters give the same
-matches whatever cuDNN's TF32 flag says, and a pose-graph solve gives the
-same bits twice.
+matches whatever cuDNN's TF32 flag says, a pose-graph solve gives the same
+bits twice, and the rectifier's maps built on the card match the CPU's.
 """
 
 import numpy as np
@@ -365,3 +367,84 @@ def test_pose_graph_solve_is_bit_reproducible(cuda):
     x2, s2, c2 = opt.optimize(graph, cfg)
     assert torch.equal(x1, x2) and torch.equal(s1, s2) and torch.equal(c1, c2)
     assert float((x1 - graph.xyzyaw).abs().max()) > 1e-2  # the solve moved the states
+
+
+@pytest.mark.parametrize("D", [15, 191, 200])
+def test_k1_and_topk_on_padded_db(cuda, D):
+    """A CUDA DB of width D stores rows zero-padded to a multiple of 8 and
+    detection pads its queries alike (db/descriptors.py): K1 and a top-3
+    search_topk on it give the plain version's gids on every slot, on the
+    unpadded rows."""
+    from cerebro_tpu_torch.db import descriptors as ddb
+
+    rng = np.random.default_rng(D)
+    N, Q = 700, 9
+    db = ddb.create(N, D, device=cuda)
+    assert db.dim == D and db.vectors.shape[1] == -(-D // 8) * 8
+    rows = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(N + 100, D)).astype(np.float32)), dim=1
+    ).to(cuda)
+    for i in range(0, N + 100, 100):  # past capacity: the ring wraps
+        ddb.append(db, rows[i : i + 100], 100)
+    assert bool((db.vectors[:, D:] == 0).all())
+    q = rows[torch.from_numpy(rng.integers(100, N + 100, Q)).to(cuda)]
+    lim = torch.from_numpy(rng.integers(100, N + 101, Q).astype(np.int32)).to(cuda)
+    lim[1] = 101  # one matchable row: top-3 fills two slots
+    flat = db.vectors[:, :D]
+    km, kg = sim.max_and_argmax(ddb.pad_queries(db, q), db.vectors, lim, db.global_ids)
+    pm, pg = sim.max_and_argmax_plain(q, flat, lim, db.global_ids)
+    assert torch.equal(kg, pg)
+    torch.testing.assert_close(km, pm, atol=1e-3, rtol=0)
+    kv, ki = sim.search_topk(ddb.pad_queries(db, q), db.vectors, lim, db.global_ids, k=3)
+    pv, pi = sim.search_topk_plain(q, flat, lim, db.global_ids, k=3)
+    assert torch.equal(ki, pi)
+    torch.testing.assert_close(kv, pv, atol=1e-3, rtol=0)
+
+
+def test_pipeline_with_unaligned_wpca_detects(cuda, tmp_path):
+    """gist -> WPCA to 15 dims on the card: the DB holds 15 logical columns
+    in 16-wide rows and each detect batch launches K1 once."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch.models import gist, wpca
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 255, (40, 32, 64), dtype=np.uint8)
+    bank = gist.gist_descriptors(torch.from_numpy(imgs).to(cuda), dim=128).cpu().numpy()
+    path = str(tmp_path / "wpca.npz")
+    wpca.save_wpca(wpca.fit_wpca(bank, out_dim=15), path)
+    cfg = C.CerebroConfig(
+        descriptor=C.DescriptorConfig(
+            image_hw=(32, 64), kind="gist", num_clusters=1, trunk_dim=128, wpca_artifact=path,
+        ),
+        loop=C.LoopConfig(db_capacity=128, exclusion_window=2),
+        runtime=C.RuntimeConfig(descriptor_batch=4, stash_dir=""),
+    )
+    pipe = CerebroPipeline(cfg, device="cuda")
+    assert pipe.db.dim == 15 and pipe.db.vectors.shape[1] == 16
+    before = sim.K1.launches
+    for t in range(12):
+        pipe.ingest_frame(float(t), imgs[t % 6], n_tracked=50)
+    pipe.flush_descriptors()
+    assert sim.K1.launches - before == pipe.timer.stats()["detect"]["count"] == 3
+    norms = pipe.db.vectors[:12].float().norm(dim=1)
+    torch.testing.assert_close(norms, torch.ones_like(norms), atol=5e-3, rtol=0)
+    pipe.close()
+
+
+def test_rectifier_maps_built_on_the_card_match_the_cpu(cuda):
+    """StereoRectifier's maps built on the card equal the CPU-built ones
+    within 1e-3 px (cuBLAS and the CPU sum the 3x3 rotation in another
+    order), on the bundled EuRoC rig at 480x752."""
+    import os
+
+    from cerebro_tpu_torch.io.rig_config import load_rig_config
+
+    spec = load_rig_config(os.path.join(
+        os.path.dirname(__file__), "..", "configs", "euroc", "euroc_stereo_config.yaml"
+    ))
+    T = spec.c1_T_c0.astype(np.float32)
+    on_card = stereo.StereoRectifier(spec.cam0, spec.cam1, T, spec.image_hw, device="cuda")
+    on_cpu = stereo.StereoRectifier(spec.cam0, spec.cam1, T, spec.image_hw, device="cpu")
+    np.testing.assert_allclose(on_card.map0, on_cpu.map0, atol=1e-3, rtol=0)
+    np.testing.assert_allclose(on_card.map1, on_cpu.map1, atol=1e-3, rtol=0)

@@ -150,11 +150,11 @@ def _base_cfg(tmp_path):
 @pytest.mark.parametrize(
     "change",
     [
-        {"descriptor": {"kind": "gist"}},
-        {"descriptor": {"wpca_artifact": "x.npz"}},
+        {"descriptor": {"kind": "netvlad"}},
+        {"descriptor": {"kind": "netvlad", "backbone": "vgg16"}},
         {"loop": {"quantized": True}},
     ],
-    ids=["gist", "wpca", "quantized"],
+    ids=["netvlad", "netvlad_vgg16", "quantized"],
 )
 def test_settings_not_ported_raise(tmp_path, change):
     cfg = _base_cfg(tmp_path)

@@ -255,8 +255,3 @@ def test_ate_rmse_matches_jax(align):
     got = teval.ate_rmse(est, gt, align=align)
     assert abs(got - want) < 1e-5
     assert (got < 0.3) == align
-
-
-def test_run_sequence_trace_dir_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        teval.run_sequence(None, [], trace_dir="trace")
