@@ -280,6 +280,27 @@ def disparity_to_points(
     return pts, ok
 
 
+def depth_to_points(
+    depth: torch.Tensor,  # (..., H, W) metres (0 / non-finite = invalid)
+    rig: RectifiedRig,
+    min_depth: float = 0.1,
+    max_depth: float = 25.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Direct depth-image unprojection, the depth-camera input path (the
+    reference ingests CV_16UC1 depth images from realsense rigs,
+    src/DataManager.cpp:851-886, src/ImageDataManager.cpp:254-259) in place
+    of stereo block matching: no K3 launch."""
+    H, W = depth.shape[-2:]
+    z = depth
+    u = torch.arange(W, dtype=torch.float32, device=depth.device)
+    v = torch.arange(H, dtype=torch.float32, device=depth.device)[:, None]
+    x = (u - rig.cx) * z / rig.fx
+    y = (v - rig.cy) * z / rig.fy
+    pts = torch.stack([x, y, z], dim=-1)
+    ok = torch.isfinite(z) & (z > min_depth) & (z < max_depth)
+    return pts, ok
+
+
 def depth_pipeline_rectified(
     left: torch.Tensor,  # (H, W) or (B, H, W)
     right: torch.Tensor,

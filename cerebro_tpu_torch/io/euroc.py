@@ -14,7 +14,8 @@ rule, src/DataManager.cpp:924-928), the pose within 20 ms.
 
 PNGs are decoded by ``decode_png_gray``, this module's own decoder (zlib
 and numpy), on every machine: EuRoC ships 8-bit grayscale, non-interlaced
-PNGs, and any other kind raises ``ValueError``.
+PNGs, and any other kind raises ``ValueError``. ``decode_png`` also reads
+the 8-bit RGB PNGs of the pipeline's debug dump (``utils/plot.encode_png``).
 """
 
 from __future__ import annotations
@@ -83,36 +84,11 @@ def _unfilter_wavefront(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
     return T[ii + jj + 2, ii + 1].astype(np.uint8)
 
 
-def decode_png_gray(data: bytes) -> np.ndarray:
-    """(H, W) uint8 pixels of an 8-bit grayscale, non-interlaced PNG (all
-    five row filters). Any other colour type, bit depth or interlace
-    raises ``ValueError``."""
-    ihdr, idat = None, []
-    for ctype, payload in _png_chunks(data):
-        if ctype == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", payload)
-        elif ctype == b"IDAT":
-            idat.append(payload)
-    if ihdr is None:
-        raise ValueError("PNG has no IHDR chunk")
-    W, H, depth, color, compression, filt, interlace = ihdr
-    if depth != 8 or color != 0:
-        raise ValueError(
-            f"only 8-bit grayscale PNGs are supported (bit depth {depth}, colour type {color})"
-        )
-    if interlace != 0 or compression != 0 or filt != 0:
-        raise ValueError(
-            f"unsupported PNG: interlace {interlace}, compression {compression}, filter method {filt}"
-        )
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != H * (W + 1):
-        raise ValueError(f"PNG data holds {rows.size} bytes, expected {H * (W + 1)}")
-    rows = rows.reshape(H, W + 1)
-    ftype, raw = rows[:, 0], rows[:, 1:]
-    if ftype.max(initial=0) > 4:
-        raise ValueError(f"unknown PNG row filter {int(ftype.max())}")
+def _unfilter(raw: np.ndarray, ftype: np.ndarray) -> np.ndarray:
+    """(H, W) bytes of one channel with their rows' filters undone."""
     if ftype.max(initial=0) >= 3:  # Average or Paeth rows: the wavefront
         return _unfilter_wavefront(raw, ftype)
+    H, W = raw.shape
     out = np.empty((H, W), np.uint8)
     prior = np.zeros(W, np.uint8)
     for r in range(H):
@@ -124,6 +100,55 @@ def decode_png_gray(data: bytes) -> np.ndarray:
             out[r] = raw[r] + prior
         prior = out[r]
     return out
+
+
+_CHANNELS = {0: 1, 2: 3}  # PNG colour type -> channels: grayscale, RGB
+
+
+def decode_png(data: bytes, colour_types=(0, 2)) -> np.ndarray:
+    """Pixels of an 8-bit, non-interlaced grayscale ((H, W) uint8) or RGB
+    ((H, W, 3) uint8) PNG, all five row filters. Any other colour type,
+    bit depth or interlace, or a colour type outside ``colour_types``,
+    raises ``ValueError``."""
+    ihdr, idat = None, []
+    for ctype, payload in _png_chunks(data):
+        if ctype == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", payload)
+        elif ctype == b"IDAT":
+            idat.append(payload)
+    if ihdr is None:
+        raise ValueError("PNG has no IHDR chunk")
+    W, H, depth, color, compression, filt, interlace = ihdr
+    kinds = " or ".join({0: "grayscale", 2: "RGB"}[c] for c in colour_types)
+    if depth != 8 or color not in colour_types:
+        raise ValueError(
+            f"only 8-bit {kinds} PNGs are supported (bit depth {depth}, colour type {color})"
+        )
+    if interlace != 0 or compression != 0 or filt != 0:
+        raise ValueError(
+            f"unsupported PNG: interlace {interlace}, compression {compression}, filter method {filt}"
+        )
+    ch = _CHANNELS[color]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != H * (W * ch + 1):
+        raise ValueError(f"PNG data holds {rows.size} bytes, expected {H * (W * ch + 1)}")
+    rows = rows.reshape(H, W * ch + 1)
+    ftype, raw = rows[:, 0], rows[:, 1:]
+    if ftype.max(initial=0) > 4:
+        raise ValueError(f"unknown PNG row filter {int(ftype.max())}")
+    if ch == 1:
+        return _unfilter(raw, ftype)
+    # each filter predicts a byte from the same channel of the pixels left,
+    # up and up-left: the channels unfilter as independent images
+    raw = raw.reshape(H, W, ch)
+    return np.stack([_unfilter(np.ascontiguousarray(raw[..., c]), ftype) for c in range(ch)], -1)
+
+
+def decode_png_gray(data: bytes) -> np.ndarray:
+    """(H, W) uint8 pixels of an 8-bit grayscale, non-interlaced PNG (all
+    five row filters). Any other colour type, bit depth or interlace
+    raises ``ValueError``."""
+    return decode_png(data, colour_types=(0,))
 
 
 def read_png_gray(path: str) -> np.ndarray:

@@ -13,22 +13,30 @@ cerebro_tpu/runtime/pipeline.py).
       candidate gates (Δt, shared tracks)             (ref dot-product thread)
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
       tier-1 verification (kernel K3 for depth) -> LoopEdge; pairs that
-      fail for lack of matches escalate to the tier-2 gather matcher
+      fail for lack of matches escalate to the tier-2 gather matcher;
+      a depth camera's pairs verify from their depth images (no K3)
     optimize_trajectory()     (ref external solve_keyframe_pose_graph)
       4-DOF switch-constrained pose graph over the keyframes
 
 Detection results stay on the device until a consumer needs them
 (``candidates``, ``verify_pending``, ``status``), so ingest never waits for
-the device per batch.
+the device per batch. ``StreamIngestor`` feeds ``ingest_frame`` from
+producer threads through the native association engine
+(``cerebro_tpu_torch/native``); ``runtime/service.py`` runs the whole node.
 
-Settings this slice does not run raise ``NotImplementedError`` naming the
+Settings the port does not run raise ``NotImplementedError`` naming the
 ROADMAP item that covers them; none is approximated.
 """
 
 from __future__ import annotations
 
+import bisect
+import copy
 import dataclasses
+import json
+import os
 import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -52,7 +60,7 @@ from cerebro_tpu_torch.posegraph import (
     relative_yaw_t_np,
 )
 from cerebro_tpu_torch.utils.timing import StageTimer
-from cerebro_tpu_torch.verify.geometric import verify_pair_batch
+from cerebro_tpu_torch.verify.geometric import VerifiedLoop, verify_pair_batch, verify_pair_depth
 
 _Q1 = "ROADMAP Queue 1"
 
@@ -243,6 +251,119 @@ class CerebroPipeline:
         self.images.close()
 
     # ------------------------------------------------------------------
+    # Warm-up (first-call costs, from the caller's thread)
+    # ------------------------------------------------------------------
+
+    def warmup(
+        self,
+        verify_device_batches: tuple = (),
+        optimize_node_buckets: tuple = (),
+        optimize_loop_buckets: tuple = (32,),
+    ) -> dict:
+        """Pay every first-call cost the live loop would otherwise pay
+        mid-stream, without mutating engine state: the nvcc builds of the
+        kernels (``csrc/*.cu``), cuDNN's first convolutions, verification's
+        first call, the native ingest engine's g++ build. Call it before
+        ``CerebroService.start()``.
+
+        ``verify_device_batches``: group sizes to verify a zero-image pair
+        group at, in both cascade tiers, plus the single pair (needs a
+        rig). ``optimize_node_buckets`` x ``optimize_loop_buckets``: pose
+        graphs of those padded sizes to solve once.
+
+        The keys of the returned dict are the JAX package's (``describe``,
+        ``detect``, ``verify_tier{1,2}_{single,batchN}``,
+        ``optimize_n{bn}_l{bl}``, ``total``); each value is the seconds
+        from the start of warmup to that step's completion.
+
+        Every warm call runs on throwaway state, and everything a warm call
+        could touch is restored. Detection searches a throwaway DB of
+        ``descriptor_batch`` rows (or a top-k's size, if larger): the port's
+        ``ddb.append`` works in place, so the live ring is never appended
+        to. The detection carries, the verification generator's state, the
+        edge and rejection lists, the cascade counters and the stage timer
+        are put back. (The JAX package's warmup advances its verification
+        key; the port keeps the contract that a warmed engine and a cold
+        one give the same results.)"""
+        from cerebro_tpu_torch import native
+
+        h, w = self.cfg.descriptor.image_hw
+        C = self.cfg.descriptor.num_channels
+        B = self.cfg.runtime.descriptor_batch
+        out = {}
+        t_start = time.perf_counter()
+
+        def done(name):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            out[name] = time.perf_counter() - t_start
+
+        native.build()
+        saved = (
+            self.db, self.timer, self._generator.get_state(),
+            copy.deepcopy((self.det_state, self.det_state_b, self.clique_state,
+                           self.topk_state, self.hyp_table)),
+            list(self.loop_edges), list(self.rejected_candidates),
+            self.escalated_to_tier2, self.tier2_accepted,
+        )
+        self.timer = StageTimer(window=saved[1].window, sync=saved[1].sync)
+        try:
+            descs = self.describe_fn(torch.zeros((B, h, w, C), dtype=torch.uint8, device=self.device))
+            done("describe")
+
+            # at least as many rows as a top-k search asks for
+            rows = max(B, self.cfg.loop.top_k, self.cfg.loop.candidates_per_query)
+            self.db = ddb.create(rows, saved[0].dim, dtype=saved[0].vectors.dtype, device=self.device)
+            ddb.append(self.db, descs, 0)
+            gidx = torch.arange(B, dtype=torch.int32, device=self.device)
+            qvalid = torch.ones(B, dtype=torch.bool, device=self.device)
+            self._run_method(ddb.pad_queries(self.db, descs), gidx, qvalid, 0)
+            done("detect")
+
+            def z(n, *shape, dtype=torch.float32):
+                return torch.zeros((n, *shape), dtype=dtype, device=self.device)
+
+            for bn in optimize_node_buckets:
+                for bl in optimize_loop_buckets:
+                    node_valid = z(bn, dtype=torch.bool)
+                    node_valid[0] = True
+                    g = PoseGraph(
+                        xyzyaw=z(bn, 4), node_valid=node_valid,
+                        odo_i=z(bn, dtype=torch.int64), odo_j=z(bn, dtype=torch.int64),
+                        odo_meas=z(bn, 4), odo_valid=z(bn, dtype=torch.bool),
+                        loop_i=z(bl, dtype=torch.int64), loop_j=z(bl, dtype=torch.int64),
+                        loop_meas=z(bl, 4), loop_valid=z(bl, dtype=torch.bool),
+                    )
+                    x, _, _ = optimize(g, self.cfg.posegraph)
+                    poses_from_xyzyaw(x).cpu()
+                    done(f"optimize_n{bn}_l{bl}")
+
+            if verify_device_batches and self.rig is not None:
+                # through the live dispatch path (_verify_chunks and
+                # _emit_edges), both cascade tiers
+                vcfg = self.cfg.verify
+                tiers = {"tier1": vcfg, "tier2": dataclasses.replace(vcfg, matcher="gather")}
+                zero = np.zeros((h, w), np.float32)
+                for tag, cfg_t in tiers.items():
+                    for vb in (1,) + tuple(verify_device_batches):
+                        fake = [
+                            (RawCandidate(idx_curr=0, idx_prev=0, score=0.0), (zero,) * 4)
+                            for _ in range(vb)
+                        ]
+                        self._verify_chunks(fake, cfg_t, max(vb, 1))
+                        done(f"verify_{tag}_{'single' if vb == 1 else f'batch{vb}'}")
+        finally:
+            (self.db, self.timer, gen_state, carries, edges, rejected,
+             self.escalated_to_tier2, self.tier2_accepted) = saved
+            self._generator.set_state(gen_state)
+            (self.det_state, self.det_state_b, self.clique_state,
+             self.topk_state, self.hyp_table) = carries
+            self.loop_edges[:] = edges
+            self.rejected_candidates[:] = rejected
+        out["total"] = time.perf_counter() - t_start
+        return out
+
+    # ------------------------------------------------------------------
     # Ingest
     # ------------------------------------------------------------------
 
@@ -253,7 +374,7 @@ class CerebroPipeline:
         n_tracked: int,
         pose: Optional[np.ndarray] = None,  # (4,4) VINS w_T_c
         right_img: Optional[np.ndarray] = None,
-        depth_img: Optional[np.ndarray] = None,
+        depth_img: Optional[np.ndarray] = None,  # (H, W) metres (depth camera)
         is_keyframe: bool = True,
         describe_eligible: bool = True,  # False = shed under load
         feat_uv: Optional[np.ndarray] = None,  # (K, 2) tracked-feature pixels
@@ -261,8 +382,6 @@ class CerebroPipeline:
         feat_xyz: Optional[np.ndarray] = None,  # (K, 3) world points
     ):
         """One camera frame. Returns kidnap events fired by this frame."""
-        if depth_img is not None:
-            _not_ported("the depth-camera rig", "item 4, verify_pair_depth")
         events = self.kidnap.feed(stamp, n_tracked)
         idx = self.store.add_frame(
             stamp, pose=pose, is_keyframe=is_keyframe, n_tracked=n_tracked,
@@ -274,6 +393,8 @@ class CerebroPipeline:
             self.images.put("left", idx, np.asarray(left_img))
             if right_img is not None:
                 self.images.put("right", idx, np.asarray(right_img))
+            if depth_img is not None:
+                self.images.put("depth", idx, np.asarray(depth_img))
             # descriptor eligibility (ref skips kidnapped <20-feat frames,
             # src/Cerebro.cpp:206-210)
             if n_tracked >= self.cfg.descriptor.min_tracked_features:
@@ -496,7 +617,9 @@ class CerebroPipeline:
         LoopEdges. Returns the number accepted.
 
         Candidates go in ``device_batch``-sized groups: each group's stereo
-        depth is one K3 launch over all its frames.
+        depth is one K3 launch over all its frames. A depth-camera rig's
+        pairs verify one call each from their depth images (no K3, no
+        cascade).
 
         ``cascade`` overrides VerifyConfig.cascade for this call: a live 1 Hz
         consumer passes False so a match-count failure rejects at once
@@ -513,8 +636,28 @@ class CerebroPipeline:
             todo = self._candidates if max_pairs is None else self._candidates[:max_pairs]
             self._candidates = [] if max_pairs is None else self._candidates[max_pairs:]
 
+        loadable, depth_pairs = [], []
         with self.timer.stage("verify_load"):
-            loadable = [(c, p) for c in todo if (p := self._load_pair(c)) is not None]
+            for cand in todo:
+                pair = self._load_pair(cand)
+                if pair is not None:
+                    (depth_pairs if pair[0] == "depth" else loadable).append((cand, pair[1:]))
+
+        # depth-camera pairs: one call each, no cascade (a depth rig has
+        # no stereo matcher escalation path), no K3: the depth is measured
+        n_accepted = 0
+        for cand, pair in depth_pairs:
+            la, da, lb, db_ = (torch.from_numpy(x).to(self.device) for x in pair)
+            with self.timer.stage("verify"):
+                res = verify_pair_depth(
+                    self.cfg.verify, self._generator,
+                    lb, db_,  # frame a := prev
+                    la, da,  # frame b := curr
+                    self.rig,
+                )
+            n_accepted += self._emit_edges(
+                [cand], VerifiedLoop(**{f.name: getattr(res, f.name)[None] for f in dataclasses.fields(res)})
+            )
 
         # Cascade: verify every pair with the cheap tier first; only pairs
         # that fail for lack of matches (the failure an extreme scale change
@@ -531,7 +674,7 @@ class CerebroPipeline:
             tier2 = dataclasses.replace(vcfg, matcher="gather")
         escalate: Optional[List] = None if tier1 == tier2 else []
         with self.timer.stage("verify_tier1"):
-            n_accepted = self._verify_chunks(loadable, tier1, device_batch, escalate=escalate)
+            n_accepted += self._verify_chunks(loadable, tier1, device_batch, escalate=escalate)
         if escalate:
             self.escalated_to_tier2 += len(escalate)
             with self.timer.stage("verify_tier2"):
@@ -635,18 +778,19 @@ class CerebroPipeline:
         return n
 
     def _load_pair(self, cand: RawCandidate):
-        """(la, ra, lb, rb) float32 images when both frames have stereo
-        images, else None."""
-        imgs = [
-            self.images.get(ns, i)
-            for ns, i in (
-                ("left", cand.idx_curr), ("right", cand.idx_curr),
-                ("left", cand.idx_prev), ("right", cand.idx_prev),
-            )
-        ]
-        if any(im is None for im in imgs):
+        """("stereo", la, ra, lb, rb) float32 images when both frames have
+        stereo images, else ("depth", la, da, lb, db) when both have depth
+        images (a depth-camera rig), else None."""
+        la = self.images.get("left", cand.idx_curr)
+        lb = self.images.get("left", cand.idx_prev)
+        if la is None or lb is None:
             return None
-        return tuple(np.asarray(im, np.float32) for im in imgs)
+        for kind, ns in (("stereo", "right"), ("depth", "depth")):
+            xa = self.images.get(ns, cand.idx_curr)
+            xb = self.images.get(ns, cand.idx_prev)
+            if xa is not None and xb is not None:
+                return (kind,) + tuple(np.asarray(im, np.float32) for im in (la, xa, lb, xb))
+        return None
 
     # ------------------------------------------------------------------
     # Trajectory optimization (pose graph over keyframes)
@@ -752,6 +896,98 @@ class CerebroPipeline:
             for c in self.candidates
         ]
 
+    def render_scores(self):
+        """(H, W, 3) image of the running max-score curve with detection
+        marks and the acceptance threshold (Plot2Mat parity)."""
+        from cerebro_tpu_torch.utils.plot import plot_scores
+
+        return plot_scores(
+            np.asarray(self.score_history, np.float32),
+            marks=self.detection_marks,
+            threshold=self.cfg.loop.dot_threshold,
+        )
+
+    def dump_debug(self, directory: str, max_rejected: int = 32) -> None:
+        """End-of-run debug dump (parity: the reference's __LOGGING__ block,
+        src/cerebro_node.cpp:613-839): status.json, loop_edges.json,
+        rejections.json, the score curve, the trajectory render, and a
+        side-by-side match image per accepted loop edge and per rejected
+        candidate, with the failing gate in the banner when OpenCV is
+        there to draw text (ref src/Visualization.cpp:75-225). Each image
+        is written as ``.npy`` and as a PNG (``utils/plot.encode_png``)."""
+        from cerebro_tpu_torch.ops import features
+        from cerebro_tpu_torch.utils.plot import (
+            encode_png,
+            side_by_side_matches,
+            trajectory_topdown,
+        )
+
+        os.makedirs(directory, exist_ok=True)
+
+        def save_img(name, img):
+            np.save(os.path.join(directory, name + ".npy"), img)
+            with open(os.path.join(directory, name + ".png"), "wb") as f:
+                f.write(encode_png(img))
+
+        def save_json(name, obj):
+            with open(os.path.join(directory, name), "w") as f:
+                json.dump(obj, f, indent=2)
+
+        save_json("status.json", self.status())
+        save_json("loop_edges.json", [e.as_json() for e in self.loop_edges])
+        save_json("rejections.json", [dataclasses.asdict(r) for r in self.rejected_candidates])
+
+        if self.score_history:
+            save_img("score_curve", self.render_scores())
+        traj = self.optimize_trajectory()
+        if traj is not None:
+            img = trajectory_topdown(
+                traj,
+                world_id=self.store.world_id[: self.store.size],
+                loop_pairs=[(e.idx_prev, e.idx_curr) for e in self.loop_edges],
+            )
+            np.save(os.path.join(directory, "trajectory.npy"), traj)
+            save_img("trajectory_render", img)
+
+        vcfg = self.cfg.verify
+        matcher = (
+            features.match_image_pair_steerable
+            if vcfg.matcher == "steerable"
+            else features.match_image_pair
+        )
+
+        def render_pair(name, idx_curr, idx_prev, accepted, banner):
+            la = self.images.get("left", idx_curr)
+            lb = self.images.get("left", idx_prev)
+            if la is None or lb is None:
+                return
+            m = matcher(
+                torch.from_numpy(np.asarray(la, np.float32)).to(self.device),
+                torch.from_numpy(np.asarray(lb, np.float32)).to(self.device),
+                max_kp=vcfg.max_features,
+                gms_factor=vcfg.gms_factor,
+                oriented=vcfg.oriented_matching,
+                scales=vcfg.scale_banks,
+            )
+            save_img(
+                name,
+                side_by_side_matches(
+                    la, lb, m.xy_a.cpu().numpy(), m.xy_b.cpu().numpy(), m.valid.cpu().numpy(),
+                    accepted=accepted, banner=banner,
+                ),
+            )
+
+        for k, e in enumerate(self.loop_edges):
+            render_pair(
+                f"pair_{k:04d}", e.idx_curr, e.idx_prev, True,
+                f"ACCEPT edge {e.idx_prev}->{e.idx_curr}  n={e.n_matches}",
+            )
+        for k, r in enumerate(self.rejected_candidates[-max_rejected:]):
+            render_pair(
+                f"reject_{k:04d}", r.idx_curr, r.idx_prev, False,
+                f"REJECT {r.idx_prev}->{r.idx_curr}: {r.reason}",
+            )
+
     def status(self) -> dict:
         return {
             "frames": self.store.size,
@@ -767,6 +1003,144 @@ class CerebroPipeline:
             "kidnap": self.kidnap.info(),
             "timings_ms": self.timer.stats(),
         }
+
+
+class _StampedPixels:
+    """Stamp-indexed pixel buffers with O(log n) nearest-stamp lookup: a
+    bisected sorted-key list makes both the tolerance lookup and the stale
+    prune logarithmic in the search; pushes arrive in near-stamp order, so
+    the insort shift is almost always an append.
+
+    Producer threads call add() while the worker calls pop_near and
+    prune_older; the compound list+dict updates are not GIL-atomic, so a
+    lock serializes them."""
+
+    def __init__(self):
+        self._d: dict = {}
+        self._keys: list = []  # sorted stamps, guarded by _mu with _d
+        self._mu = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._d)
+
+    def __contains__(self, stamp_ns: int) -> bool:
+        return stamp_ns in self._d
+
+    def add(self, stamp_ns: int, img) -> None:
+        with self._mu:
+            if stamp_ns not in self._d:
+                bisect.insort(self._keys, stamp_ns)
+            self._d[stamp_ns] = img
+
+    def pop_near(self, stamp_ns: int, tol_ns: int = 1_000_000):
+        """Pop the entry closest to ``stamp_ns`` within tolerance, or None."""
+        with self._mu:
+            keys = self._keys
+            if not keys:
+                return None
+            i = bisect.bisect_left(keys, stamp_ns)
+            best, best_err = -1, tol_ns + 1
+            for j in (i - 1, i):
+                if 0 <= j < len(keys):
+                    err = abs(keys[j] - stamp_ns)
+                    if err < best_err:
+                        best, best_err = j, err
+            if best < 0:
+                return None
+            s = keys.pop(best)
+            return self._d.pop(s)
+
+    def prune_older(self, cutoff_ns: int) -> int:
+        """Drop all entries with stamp < cutoff; returns how many."""
+        with self._mu:
+            i = bisect.bisect_left(self._keys, cutoff_ns)
+            stale = self._keys[:i]
+            del self._keys[:i]
+            for s in stale:
+                del self._d[s]
+            return len(stale)
+
+
+class StreamIngestor:
+    """Asynchronous front end: capture/VIO threads push raw feeds (images,
+    poses, tracking counts) with nanosecond stamps; the native C++ engine
+    (cerebro_tpu_torch/native) associates them off the GIL; ``pump()``
+    drains assembled frames into the pipeline on the consumer thread.
+
+    The replacement for the reference's ROS subscriber callbacks and
+    DataManager::data_association_thread (src/DataManager.cpp:769-1091).
+    Pixels stay numpy arrays on the host until ``ingest_frame``."""
+
+    def __init__(
+        self, pipeline: CerebroPipeline, hold_s: float = 0.2, capacity: int = 4096
+    ):
+        from cerebro_tpu_torch.native import make_ingest
+
+        self.pipeline = pipeline
+        self.engine = make_ingest(
+            tol_s=1e-3, hold_s=hold_s, gap_s=pipeline.cfg.kidnap.stream_gap_s,
+            capacity=capacity,
+        )
+        self._left = _StampedPixels()  # each internally locked (producer
+        self._right = _StampedPixels()  # threads add, the worker pops/prunes)
+        self.pixels_dropped = 0  # images rejected at capacity or pruned stale
+        self._shed_phase = 0  # deterministic decimation counter
+
+    # -- producer side (any thread) ------------------------------------
+
+    def push_image(self, stamp_ns: int, img: np.ndarray, is_right: bool = False):
+        # engine first: if the ring is at capacity the frame will never be
+        # emitted, so keeping its pixels would leak
+        if self.engine.push_image(stamp_ns, is_right):
+            (self._right if is_right else self._left).add(stamp_ns, img)
+        else:
+            self.pixels_dropped += 1
+
+    def push_pose(self, stamp_ns: int, w_T_c: np.ndarray):
+        self.engine.push_pose(stamp_ns, w_T_c)
+
+    def push_tracking(self, stamp_ns: int, n_tracked: int, is_keyframe: bool):
+        self.engine.push_tracking(stamp_ns, n_tracked, is_keyframe)
+
+    # -- consumer side (pipeline thread) --------------------------------
+
+    def pump(self, max_frames: int = 256) -> int:
+        """Drain assembled frames into the pipeline. Returns frames fed.
+
+        Backpressure: when the engine backlog exceeds
+        ``RuntimeConfig.shed_backlog``, description is decimated: only every
+        stride-th eligible keyframe is queued, stride = ceil(backlog/limit)
+        (the deterministic equivalent of the reference's probabilistic skip
+        P=1-Δt/est_ms, src/Cerebro.cpp:193-203). Frames are always stored;
+        only descriptor work is shed."""
+        backlog = int(self.engine.pending)
+        limit = self.pipeline.cfg.runtime.shed_backlog
+        stride = max(1, -(-backlog // limit)) if limit > 0 else 1
+
+        frames = self.engine.drain(max_out=max_frames)
+        for f in frames:
+            left = self._left.pop_near(f["stamp_ns"])
+            right = self._right.pop_near(f["stamp_ns"])
+            if left is None:
+                continue
+            self._shed_phase += 1
+            self.pipeline.ingest_frame(
+                f["stamp"],
+                left,
+                n_tracked=f["n_tracked"],
+                pose=f["pose"].astype(np.float32) if f["pose"] is not None else None,
+                right_img=right,
+                is_keyframe=f["is_keyframe"],
+                describe_eligible=(self._shed_phase % stride == 0),
+            )
+        # Reclaim pixels for frames the engine will never emit (dropped at
+        # capacity under a stale stamp, or emitted with a slightly different
+        # associated stamp): anything older than both the emit horizon and
+        # the oldest still-pending frame is unreachable.
+        cutoff = min(self.engine.emit_horizon, self.engine.oldest_pending) - 1_000_000
+        self.pixels_dropped += self._left.prune_older(cutoff)
+        self.pixels_dropped += self._right.prune_older(cutoff)
+        return len(frames)
 
 
 def _fit_image(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:

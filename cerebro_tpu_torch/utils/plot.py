@@ -11,11 +11,14 @@ Parity targets:
     accept/reject banner;
   * ``trajectory_topdown`` — the rviz marker trajectory as a plotted image.
 
-All return (H, W, 3) uint8 arrays the caller can save or stream.
+All return (H, W, 3) uint8 arrays the caller can save or stream;
+``encode_png`` writes one as a PNG file's bytes (no OpenCV or PIL needed).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -163,3 +166,24 @@ def trajectory_topdown(
             if 0 <= y < H and 0 <= x < W:
                 img[y, x] = _MARK
     return img
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A PNG file of an (H, W, 3) uint8 RGB image: 8 bits per channel,
+    every row filtered None (filter type 0), no interlace."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"expected an (H, W, 3) RGB image, got shape {img.shape}")
+    H, W, _ = img.shape
+    rows = np.zeros((H, 3 * W + 1), np.uint8)
+    rows[:, 1:] = img.reshape(H, 3 * W)
+
+    def chunk(ctype: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + ctype + data + struct.pack(">I", zlib.crc32(ctype + data))
+
+    return (
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + chunk(b"IEND", b"")
+    )

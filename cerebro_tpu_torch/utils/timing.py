@@ -44,11 +44,15 @@ class StageTimer:
         try:
             yield
         finally:
-            dt = time.perf_counter() - t0
-            buf = self._samples[name]
-            buf.append(dt)
-            if len(buf) > self.window:
-                del buf[: len(buf) - self.window]
+            self.record(name, time.perf_counter() - t0)
+
+    def record(self, name: str, seconds: float):
+        """Add one sample of ``seconds`` to stage ``name`` (for spans timed
+        by the caller, such as the service's worker tick)."""
+        buf = self._samples[name]
+        buf.append(seconds)
+        if len(buf) > self.window:
+            del buf[: len(buf) - self.window]
 
     def stats(self, skip_first: int = 0) -> Dict[str, Dict[str, float]]:
         """Per-stage statistics. ``skip_first`` drops that many leading

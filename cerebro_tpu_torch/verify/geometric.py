@@ -7,7 +7,9 @@ Re-implements the reference's ``loopcandiate_consumer_thread`` +
 ``ProcessedLoopCandidate::makeLoopEdgeMsgWithConsistencyCheck``
 (src/ProcessedLoopCandidate.cpp:40-116):
 
-  stereo depth for both frames         (geometry/stereo.py, kernel K3)
+  stereo depth for both frames         (geometry/stereo.py, kernel K3;
+                                        a depth camera's images instead
+                                        in verify_pair_depth, no K3)
   point matches between the two lefts  (ops/features.py: the steerable or
                                         the gather matcher, + GMS)
   reject if matches < min_matches_attempt            (ref :1487  >=150)
@@ -172,6 +174,26 @@ def verify_pair(
         rig, sample_idx=[sample_idx],
     )
     return VerifiedLoop(**{f.name: getattr(res, f.name)[0] for f in dataclasses.fields(res)})
+
+
+def verify_pair_depth(
+    cfg: VerifyConfig,
+    generator: Optional[torch.Generator],
+    left_a: torch.Tensor,  # (H, W) grayscale float32
+    depth_a: torch.Tensor,  # (H, W) metres
+    left_b: torch.Tensor,
+    depth_b: torch.Tensor,
+    rig: stereo.RectifiedRig,
+    sample_idx=(None, None, None),
+) -> VerifiedLoop:
+    """Depth-camera variant: 3D structure from the depth images directly
+    (the reference's realsense/depth-topic rigs): the same matching, the
+    same three-way pose and the same gates as a stereo pair."""
+    pts_a, ok_a = stereo.depth_to_points(depth_a, rig, cfg.min_depth, cfg.max_depth)
+    pts_b, ok_b = stereo.depth_to_points(depth_b, rig, cfg.min_depth, cfg.max_depth)
+    return verify_from_points(
+        cfg, generator, left_a, pts_a, ok_a, left_b, pts_b, ok_b, rig, sample_idx=sample_idx
+    )
 
 
 def verify_pair_batch(

@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phase k3    # K3 alone, an iteration aid
     python3 chip_smoke.py --phase photo # the 1,000-frame photo-world run
     python3 chip_smoke.py --phase euroc # the EuRoC entry point's phase alone
+    python3 chip_smoke.py --phase live  # the live node alone, on a 60 s stream
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -114,9 +115,51 @@ also reported):
             the repeat DB), K3 (four verified pairs) and K1 at D=191
             against their plain versions: gids exact, scores within 1e-3,
             with their times;
+  live      the live node as users run it (runtime/service.py): the
+            photo world at 20 Hz, a lap every 15 s, no kidnap, 30 s of
+            stream (600 frames), rendered before the clock starts, at
+            scripts/soak_live_rate.py's settings (the ported descriptor at
+            240x320, batches of 16, 1,024 features, 128 hypotheses, GMS
+            factor 4, accept gate 200, hold 0.05 s, a partial batch
+            described after 0.9 s, live verification every 1.5 s with
+            cascade=False, one pose-graph shape for the run) but the
+            default 29,184-row DB, Method A top-1 (K1). warmup() on the
+            main thread (its seconds and detail printed), then
+            CerebroService.start(): a producer thread pushes left and right
+            images, odometry poses and tracking counts of 100 in real time,
+            every 2nd frame a keyframe, while the worker and optimizer
+            threads run; a monitor samples host counters only (backlog,
+            edges) every 0.1 s; then stop(save_dir=) drains (the cascade
+            on) and saves. Printed: the realtime factor, frames, described,
+            shed, ingest_dropped, max and p50 backlog, edges live and
+            final, verify lag at stream end, whether the optimizer solved
+            during the stream, each edge's error against ground truth and
+            edge precision, K1/K2/K3 launches of the stream and of the
+            drain, the worker's stage stats (first call excluded), the
+            producer's push and sleep-overrun seconds, the edges beyond
+            2 deg / 0.2 m, each re-verified 8 times with fresh draws.
+            Checks: every pushed frame ingested, described + shed ==
+            eligible keyframes, nothing dropped, an edge during the
+            stream, the edges' stored images are the frames pushed, every
+            edge within 5 deg / 0.5 m (the other phases' wrong-loop
+            bound; see EDGE_DEG), the saved state reloads, K1 once per
+            detect batch and K2 never, K3 launched; then K1 on the live
+            DB's own rows and K3 on up to 8 live pairs' images (a live
+            verify group's 16 frames) against their plain versions (gids
+            exact; disparity as in k3). Realtime factor, shedding and
+            backlog are measurements, not gates;
+  depth     the depth-camera rig: the photo world, 200 frames over 2
+            laps (a keyframe every 0.15 s, so a lap takes 15 s), no kidnap,
+            at photo_config's settings (top-3, K2), each frame fed with
+            Renderer.depth and no right image, then verify_pending (one
+            call per pair, no cascade) and optimize_trajectory. Checks: an
+            edge, every edge within 2 deg / 0.2 m, no K3 launch (the depth
+            is measured), K2 once per detect batch, K1 never, a finite
+            solve;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
-            pipeline and euroc, K2 in pipeline_topk, pipeline_photo and
-            euroc, K3 in all four), error against its
+            pipeline, euroc and live, K2 in pipeline_topk, pipeline_photo,
+            euroc and depth, K3 in pipeline, pipeline_topk, pipeline_photo,
+            euroc and live), error against its
             plain version (the largest over every shape it was held at),
             kernel / plain / library times and the bound; K2's also
             carries the top-3 search_topk call's times and its one-pass
@@ -136,6 +179,11 @@ no main-path run, so its result does not replace the full run's.
 ``--phase euroc`` builds every kernel and runs the ``device`` and ``euroc``
 phases, then a kernels line of the euroc runs alone (K1, K2, K3 and
 k1_d191, with the euroc phase's checks and launches) and the last two
+lines.
+
+``--phase live`` builds every kernel and runs the ``device`` phase and
+``live`` on a 60 s stream (1,200 frames, 4 laps: SOAK_LIVE.json's length),
+then a kernels line of K1 and K3 from that run alone, and the last two
 lines.
 
 ``--phase photo`` builds every kernel and runs the ``device`` phase, the
@@ -176,6 +224,19 @@ PHOTO_FRAMES, PHOTO_LAPS = 400, 1.4  # the 1,000-frame, 3.5-lap spacing
 PHOTO_FULL_FRAMES, PHOTO_FULL_LAPS = 1000, 3.5  # bench_e2e.py's photo run
 EUROC_FRAMES, EUROC_LAPS = 400, 2.0  # the EuRoC fixture: lap 2 revisits lap 1
 ROUNDTRIP_LIMIT = 3.0  # grey levels per pixel, rectified against the image it came from
+LIVE_RATE_HZ, LIVE_LAP_S = 20.0, 15.0  # the live stream: 20 Hz, a lap every 15 s
+LIVE_S, LIVE_PHASE_S = 30.0, 60.0  # its length in the default run and under --phase live
+# Edge error against ground truth: every depth edge within 2 deg / 0.2 m;
+# every live edge within the wrong-loop bound the other phases use, 5 deg /
+# 0.5 m, its edges beyond 2 deg / 0.2 m counted and each re-verified. On the
+# photo world's nadir view at 6 m the 30 s stream's first live edge, a
+# marginal pair (203 matches against the accept gate of 200), comes out of
+# verification on an H100 at 2.8 deg / 0.30 m: a tilt traded for a shift
+# (0.30 m / 0.049 rad = 6.1 m, the flight height), inside the
+# verification's own 5 deg / 0.2 m three-way gate.
+EDGE_DEG, EDGE_M = 2.0, 0.2
+WRONG_LOOP_DEG, WRONG_LOOP_M = 5.0, 0.5
+DEPTH_FRAMES, DEPTH_LAPS, DEPTH_DT_S = 200, 2.0, 0.15  # the depth-camera stream
 
 
 _last_emit = time.perf_counter()
@@ -926,7 +987,7 @@ def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
     gidx = torch.arange(pipe.db.total - B, pipe.db.total, dtype=torch.int32, device=dev)
     qvalid = torch.ones(B, dtype=torch.bool, device=dev)
     P = 4  # verify_pending's default device_batch
-    pairs = [pipe._load_pair(c) for c in cands[:P]]
+    pairs = [pipe._load_pair(c)[1:] for c in cands[:P]]  # (la, ra, lb, rb)
     la, ra, lb, rb = (
         torch.from_numpy(np.stack([p[j] for p in pairs])).to(dev) for j in range(4)
     )
@@ -1458,7 +1519,7 @@ def phase_euroc(device):
         q, _, lim = db_queries(teach, cfg.runtime.descriptor_batch, seed=1)
         checks["K2"] = k2_measure(q, repeat.db.vectors, lim, repeat.db.global_ids,
                                   k=cfg.loop.candidates_per_query)
-        pairs = [repeat._load_pair(c) for c in (repeat.loop_edges + repeat.rejected_candidates)[:4]]
+        pairs = [repeat._load_pair(c)[1:] for c in (repeat.loop_edges + repeat.rejected_candidates)[:4]]
         L = torch.from_numpy(np.stack([p[j] for p in pairs for j in (0, 2)])).to(device)
         R = torch.from_numpy(np.stack([p[j] for p in pairs for j in (1, 3)])).to(device)
         checks["K3"] = {"B": L.shape[0], **k3_measure(L, R)}
@@ -1526,6 +1587,317 @@ def phase_euroc(device):
     return out, checks, launches
 
 
+# ---------------------------------------------------------------------------
+# The live node, and the depth-camera rig
+# ---------------------------------------------------------------------------
+
+
+def live_config(n_frames: int):
+    """scripts/soak_live_rate.py's settings (:74-118) at the port's default
+    29,184-row DB: the ported descriptor at 240x320, descriptor batches of
+    16, images kept in RAM for 10 s, one pose-graph shape for the whole
+    run (node floor past the stream's frames, loop floor 256), 1,024
+    features, 128 RANSAC hypotheses, GMS factor 4, accept gate 200; Method
+    A top-1 (K1). Returns (config, node floor)."""
+    from cerebro_tpu_torch import config as C
+
+    node_floor = 512
+    while node_floor < n_frames + 2:
+        node_floor *= 2
+    cfg = C.CerebroConfig(
+        descriptor=C.DescriptorConfig(image_hw=(240, 320), kind="ported"),
+        runtime=C.RuntimeConfig(descriptor_batch=16, stash_dir="", image_ram_window_s=10.0),
+        posegraph=C.PoseGraphConfig(node_bucket_floor=node_floor, loop_bucket_floor=256),
+        verify=C.VerifyConfig(
+            max_features=1024, ransac_hypotheses=128, gms_factor=4.0, min_matches_accept=200
+        ),
+    )
+    return cfg, node_floor
+
+
+def edge_precision(pipe, seq) -> float:
+    return sum(
+        np.linalg.norm(seq.xy[e.idx_curr] - seq.xy[e.idx_prev]) < 1.0 for e in pipe.loop_edges
+    ) / max(len(pipe.loop_edges), 1)
+
+
+def phase_live(device, stream_s: float):
+    """The live node as users run it: a 20 Hz stereo stream of the photo
+    world (a lap every LIVE_LAP_S seconds, no kidnap) pushed in real time
+    by a producer thread into CerebroService's worker and optimizer
+    threads, after CerebroPipeline.warmup on this thread; then
+    stop(save_dir=). Returns (the phase line, the kernel checks, the K1 /
+    K2 / K3 launches of the stream and the drain)."""
+    import os
+    import tempfile
+    import threading
+
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.io import load_pipeline_state
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+    from cerebro_tpu_torch.runtime import CerebroPipeline, CerebroService
+
+    ns_per_s = 1_000_000_000
+    n_frames = int(stream_s * LIVE_RATE_HZ)
+    t0 = time.perf_counter()
+    world = pw.PhotoWorld.create(seed=0)
+    seq = pw.make_photo_sequence(
+        n_frames=n_frames, laps=stream_s / LIVE_LAP_S, kidnap_frames=0, teleport_phase=0.0
+    )
+    ren = sw.Renderer(world)
+    frames = [ren.stereo(float(x), float(y)) for x, y in seq.xy]  # rendered before the clock
+    t_world = time.perf_counter() - t0
+    cfg, node_floor = live_config(n_frames)
+    pipe = CerebroPipeline(cfg, rig=ren.rig(), body_T_cam=sw.body_T_cam(), device=device)
+
+    t0 = time.perf_counter()
+    warm = pipe.warmup(
+        verify_device_batches=(8,), optimize_node_buckets=(node_floor,), optimize_loop_buckets=(256,)
+    )
+    warm_s = time.perf_counter() - t0
+
+    svc = CerebroService(pipe, hold_s=0.05, flush_interval_s=0.9, verify_every_s=1.5)
+    backlog, edges_timeline = [], []
+    push = {"total_s": 0.0, "max_s": 0.0, "sleep_overrun_s": 0.0}
+
+    def producer():
+        for i in range(n_frames):
+            target = t_start + i / LIVE_RATE_HZ
+            now = time.perf_counter()
+            if target > now:
+                time.sleep(target - now)
+                overrun = time.perf_counter() - target
+                if overrun > 0.05:
+                    push["sleep_overrun_s"] += overrun
+            ns = int((1.0 + i / LIVE_RATE_HZ) * ns_per_s)
+            t_push = time.perf_counter()
+            svc.push_image(ns, frames[i][0])
+            svc.push_image(ns, frames[i][1], is_right=True)
+            svc.push_pose(ns, seq.odom_poses[i])
+            svc.push_tracking(ns, 100, is_keyframe=(i % 2 == 0))
+            dt = time.perf_counter() - t_push
+            push["total_s"] += dt
+            push["max_s"] = max(push["max_s"], dt)
+        svc.push_image(10**6 * ns_per_s, np.zeros_like(frames[0][0]))  # release the hold window
+
+    def monitor():
+        # host counters only: status() would read device results back
+        while th.is_alive():
+            backlog.append(svc.ingest.engine.pending + len(pipe._pending_desc))
+            edges_timeline.append(len(pipe.loop_edges))
+            time.sleep(0.1)
+
+    th = threading.Thread(target=producer)
+    mon = threading.Thread(target=monitor)
+    K1.launches = K2.launches = K3.launches = 0
+    t_start = time.perf_counter()
+    svc.start()
+    th.start()
+    mon.start()
+    th.join()
+    mon.join()
+    wall = time.perf_counter() - t_start
+    stream_launches = {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches}
+    edges_at_stream_end = len(pipe.loop_edges)
+    edges_live = max(edges_timeline, default=0)
+    optimized_live = svc.latest_trajectory is not None
+    verify_lag = len(pipe.candidates)  # the 1 Hz consumer's queue at stream end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_live_") as tmp:
+        t0 = time.perf_counter()
+        svc.stop(save_dir=os.path.join(tmp, "state"))
+        torch.cuda.synchronize()
+        stop_s = time.perf_counter() - t0
+        drain_launches = {k: K.launches - stream_launches[k]
+                          for k, K in (("K1", K1), ("K2", K2), ("K3", K3))}
+        reloaded = load_pipeline_state(os.path.join(tmp, "state"), cfg=cfg, rig=ren.rig(),
+                                       device=device)
+        reload_ok = (reloaded.store.size == pipe.store.size and reloaded.db.total == pipe.db.total
+                     and len(reloaded.loop_edges) == len(pipe.loop_edges))
+        reloaded.close()
+    st = svc.status()
+    errs = edge_errors(pipe, seq)
+    # the pixels the engine handed over are the frames pushed at those stamps
+    ends = {i for e in pipe.loop_edges for i in (e.idx_curr, e.idx_prev)}
+    pixels_intact = all(
+        np.array_equal(pipe.images.get("left", i), frames[i][0])
+        and np.array_equal(pipe.images.get("right", i), frames[i][1]) for i in ends
+    )
+    eligible = int(sum(i % 2 == 0 for i in range(n_frames)))  # keyframes with 100 tracked
+    stats = pipe.timer.stats()
+    out = {
+        "phase": "live",
+        "stream_s": stream_s, "rate_hz": LIVE_RATE_HZ, "laps": stream_s / LIVE_LAP_S,
+        "settings": "scripts/soak_live_rate.py: ported descriptor 240x320, batch 16, 1024 "
+                    "features, 128 hypotheses, GMS factor 4, accept gate 200, hold 0.05 s, "
+                    f"flush 0.9 s, verify every 1.5 s; DB {cfg.loop.db_capacity} rows; Method A top-1",
+        "world_and_render_s": t_world,
+        "warmup_s": warm_s, "warmup_detail_s": warm,
+        "wall_s_stream": wall, "realtime_factor": stream_s / wall,
+        "frames_pushed": n_frames, "frames": st["frames"],
+        "eligible_keyframes": eligible, "described": st["described"],
+        "shed": st["shed_descriptors"], "ingest_dropped": st["ingest_dropped"],
+        "pixels_dropped": st["pixels_dropped"],
+        "max_backlog_frames": int(max(backlog, default=0)),
+        "p50_backlog_frames": float(np.median(backlog)) if backlog else 0.0,
+        "loop_edges_live": int(edges_live), "loop_edges_final": st["loop_edges"],
+        "rejected_final": st["rejected_candidates"],
+        "verify_lag_pairs_at_stream_end": verify_lag,
+        "optimized_during_stream": optimized_live,
+        # per edge: prev, curr, matches, verified during the stream, error
+        "edges": [[e.idx_prev, e.idx_curr, e.n_matches, k < edges_at_stream_end, a, t]
+                  for k, (e, (a, t)) in enumerate(zip(pipe.loop_edges, errs))],
+        "edge_pixels_intact": pixels_intact,
+        "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
+        "edge_trans_err_m_max": max((t for _, t in errs), default=None),
+        "edge_precision": edge_precision(pipe, seq),
+        "detect_batches": stats["detect"]["count"],
+        "stream_launches": stream_launches, "drain_launches": drain_launches,
+        "stop_s": stop_s, "saved_state_reloads": reload_ok,
+        "producer_push": push,
+        "worker_stage_ms": pipe.timer.stats(skip_first=1),
+    }
+    far = [e for e, (a, t) in zip(pipe.loop_edges, errs) if a > EDGE_DEG or t > EDGE_M]
+    out["edges_beyond_2deg_0p2m"] = len(far)
+    out["reverify_far_edges"] = reverify(pipe, seq, far)
+    # each kernel on this run's own data: K1 on the live DB's rows, K3 on
+    # the images of up to 8 verified pairs (a live verify group's shape)
+    q, _, lim = db_queries(pipe, cfg.runtime.descriptor_batch, seed=5)
+    checks = {"K1": k1_measure(q, pipe.db.vectors, q, pipe.db.vectors, lim, pipe.db.global_ids)}
+    check(pipe.loop_edges, "live: no loop edge")
+    pairs = [pipe._load_pair(e)[1:] for e in pipe.loop_edges[:8]]
+    L = torch.from_numpy(np.stack([p[j] for p in pairs for j in (2, 0)])).to(device)
+    R = torch.from_numpy(np.stack([p[j] for p in pairs for j in (3, 1)])).to(device)
+    checks["K3"] = {"B": L.shape[0], **k3_measure(L, R)}
+    out["kernel_checks"] = checks
+    pipe.close()
+    launches = {k: stream_launches[k] + drain_launches[k] for k in stream_launches}
+    return out, checks, launches
+
+
+def reverify(pipe, seq, edges, n: int = 8) -> list:
+    """Each edge's pair verified ``n`` more times as the live tier does it
+    (cascade=False), each time with a fresh generator: how many accept, and
+    each accepted pose's error against ground truth."""
+    from cerebro_tpu_torch.geometry import se3
+    from cerebro_tpu_torch.verify.geometric import verify_pair
+
+    out = []
+    for e in edges:
+        _, la, ra, lb, rb = pipe._load_pair(e)
+        imgs = [torch.from_numpy(x).to(pipe.device) for x in (lb, rb, la, ra)]
+        gt = torch.from_numpy((np.linalg.inv(seq.gt_poses[e.idx_prev]) @ seq.gt_poses[e.idx_curr])
+                              .astype(np.float32))
+        errs = []
+        for k in range(n):
+            g = torch.Generator(device=pipe.device).manual_seed(1000 + k)
+            r = verify_pair(pipe.cfg.verify, g, *imgs, pipe.rig)
+            if bool(r.accepted):
+                ang, tr = se3.pose_delta_metrics(gt, torch.linalg.inv(r.T_b_a.float()).cpu())
+                errs.append([float(ang), float(tr)])
+        out.append({"prev": e.idx_prev, "curr": e.idx_curr, "tries": n, "accepted": len(errs),
+                    "errors": errs})
+    return out
+
+
+def check_live(run: dict, launches: dict):
+    check(run["frames"] == run["frames_pushed"], f"live: {run['frames']} of {run['frames_pushed']} frames")
+    check(run["described"] + run["shed"] == run["eligible_keyframes"],
+          f"live: described {run['described']} + shed {run['shed']} != {run['eligible_keyframes']}")
+    check(run["ingest_dropped"] == 0, f"live: the ingest engine dropped {run['ingest_dropped']}")
+    check(run["loop_edges_live"] >= 1, "live: no loop edge while the stream ran")
+    check(run["edge_pixels_intact"], "live: an edge's stored images are not the frames pushed")
+    check(run["edge_rot_err_deg_max"] <= WRONG_LOOP_DEG and run["edge_trans_err_m_max"] <= WRONG_LOOP_M,
+          f"live: an edge is more than {WRONG_LOOP_DEG} deg / {WRONG_LOOP_M} m from ground truth")
+    check(run["saved_state_reloads"], "live: the saved state does not reload")
+    check(launches["K1"] == run["detect_batches"] and launches["K2"] == 0,
+          f"live: K1 launched {launches['K1']} times for {run['detect_batches']} detect batches")
+    check(launches["K3"] > 0, "live: K3 never launched")
+
+
+def phase_depth(device, n_frames: int, laps: float) -> dict:
+    """The depth-camera rig: the photo world at photo_config's settings
+    (top-3, K2), every keyframe fed with Renderer.depth and no right
+    image, then verify_pending (one call per pair, no cascade) and
+    optimize_trajectory."""
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+    from cerebro_tpu_torch.runtime import CerebroPipeline
+
+    t0 = time.perf_counter()
+    world = pw.PhotoWorld.create(seed=0)
+    # a keyframe every DEPTH_DT_S: a lap takes 15 s, as the live stream's
+    # do, past the 10 s pair gate (VerifyConfig.min_pair_dt_s)
+    seq = pw.make_photo_sequence(n_frames=n_frames, laps=laps, kidnap_frames=0,
+                                 teleport_phase=0.0, dt=DEPTH_DT_S)
+    ren = sw.Renderer(world)
+    views = [(ren.render(float(x), float(y)), ren.depth(float(x), float(y))) for x, y in seq.xy]
+    t_world = time.perf_counter() - t0
+    cfg = photo_config(n_frames)
+    pipe = CerebroPipeline(cfg, rig=ren.rig(), body_T_cam=sw.body_T_cam(), device=device)
+    pipe.timer.sync = True
+    K1.launches = K2.launches = K3.launches = 0
+    t0 = time.perf_counter()
+    for i, (left, depth) in enumerate(views):
+        pipe.ingest_frame(float(seq.stamps[i]), left, n_tracked=int(seq.n_tracked[i]),
+                          pose=seq.odom_poses[i], depth_img=depth,
+                          is_keyframe=bool(seq.is_keyframe[i]))
+    pipe.flush_descriptors()
+    cands = list(pipe.candidates)
+    t_ingest = time.perf_counter() - t0
+    k3_before_verify = K3.launches
+    t0 = time.perf_counter()
+    accepted = pipe.verify_pending()
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    k3_verify = K3.launches - k3_before_verify
+    t0 = time.perf_counter()
+    opt = pipe.optimize_trajectory()
+    t_opt = time.perf_counter() - t0
+    errs = edge_errors(pipe, seq)
+    stats = pipe.timer.stats()
+    steady = pipe.timer.stats(skip_first=1)
+    reasons: dict = {}
+    for r in pipe.rejected_candidates:
+        key = "accept gate" if r.reason.startswith("match count") else r.reason.split(" (")[0]
+        reasons[key] = reasons.get(key, 0) + 1
+    out = {
+        "phase": "depth",
+        "frames": n_frames, "laps": laps,
+        "settings": f"photo_config: top-3, DB {cfg.loop.db_capacity} rows, batch 16, 1024 "
+                    "features, accept gate 200; depth images, no right images",
+        **candidate_quality(pipe, seq, cands),
+        "edges_accepted": accepted, "edges_rejected": len(pipe.rejected_candidates),
+        "reject_reasons": reasons, "escalated_to_tier2": pipe.escalated_to_tier2,
+        "edge_precision": edge_precision(pipe, seq),
+        "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
+        "edge_trans_err_m_max": max((t for _, t in errs), default=None),
+        "optimize_finite": opt is not None and bool(np.isfinite(opt).all()),
+        "world_and_render_s": t_world, "ingest_s": t_ingest, "verify_s": t_verify,
+        "verify_ms_per_pair": 1e3 * t_verify / max(len(cands), 1),
+        "optimize_s": t_opt,
+        "detect_batches": stats["detect"]["count"],
+        "k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches,
+        "k3_launches_verify": k3_verify,
+        "stage_mean_ms": {k: steady[k]["mean_ms"] for k in ("describe", "detect", "verify") if k in steady},
+    }
+    pipe.close()
+    return out
+
+
+def check_depth(out: dict):
+    check(out["edges_accepted"] >= 1, "depth: no loop edge")
+    check(out["edge_rot_err_deg_max"] <= EDGE_DEG and out["edge_trans_err_m_max"] <= EDGE_M,
+          f"depth: an edge is more than {EDGE_DEG} deg / {EDGE_M} m from ground truth")
+    check(out["k3_launches"] == 0, f"depth: K3 launched {out['k3_launches']} times")
+    check(out["k2_launches"] == out["detect_batches"] and out["k1_launches"] == 0,
+          f"depth: K2 launched {out['k2_launches']} times for {out['detect_batches']} detect batches")
+    check(out["optimize_finite"], "depth: the solve is not finite")
+
+
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
@@ -1543,10 +1915,11 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc"), default="all",
+    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live"), default="all",
                     help="all: every phase (default); k3: build and check K3 alone; "
                          "photo: pipeline_photo at 1,000 frames over 3.5 laps; "
-                         "euroc: the EuRoC entry point's phase and its kernels line")
+                         "euroc: the EuRoC entry point's phase and its kernels line; "
+                         "live: the live node's phase alone on a 60 s stream, and its kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1588,6 +1961,13 @@ def main(argv=None) -> int:
         euroc, checks, launches = phase_euroc(device)
         emit(euroc)
         emit({"kernels": euroc_kernel_entries(checks, launches)})
+        return finish(smi)
+
+    if args.phase == "live":
+        live, checks, launches = phase_live(device, LIVE_PHASE_S)
+        emit(live)
+        check_live(live, launches)
+        emit({"kernels": live_kernel_entries(checks, launches)})
         return finish(smi)
 
     world = sw.CircuitWorld.create(seed=0)
@@ -1655,23 +2035,34 @@ def main(argv=None) -> int:
     euroc, euroc_checks, euroc_launches = phase_euroc(device)
     emit(euroc)
 
+    live, live_checks, live_launches = phase_live(device, LIVE_S)
+    emit(live)
+    check_live(live, live_launches)
+    depth = phase_depth(device, DEPTH_FRAMES, DEPTH_LAPS)
+    emit(depth)
+    check_depth(depth)
+
     main_k1 = k1["shapes"][0]
     main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["N"] == k2["N"] and x["k"] == k)
     k2_entry = kernel_entry("K2 score_topk (banned argmax; top-k call)",
                             "cerebro_tpu_torch/csrc/score_topk.cu",
                             "cerebro_tpu/ops/similarity.py:286",
-                            topk["k2_launches"] + photo["k2_launches"] + euroc_launches["K2"],
+                            topk["k2_launches"] + photo["k2_launches"] + euroc_launches["K2"]
+                            + depth["k2_launches"],
                             max(x["max_abs_err"] for x in k2["shapes"]), main_k2)
     # the main path's K2 launch is a top-3 search_topk call
     k2_entry.update({key: main_k2[key] for key in (
         "k", "call_ms", "call_plain_ms", "call_library_ms", "call_bound_ms")})
     k3_main = k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]
-                       + euroc_launches["K3"])
-    k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"])
+                       + euroc_launches["K3"] + live_launches["K3"] + depth["k3_launches"])
+    k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"],
+                                 live_checks["K3"]["max_abs_err"])
     kernels = [
         kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
-                     "cerebro_tpu/ops/similarity.py:98", run["k1_launches"] + euroc_launches["K1"],
-                     max([x["max_abs_err"] for x in k1["shapes"]] + [euroc_checks["K1"]["max_abs_err"]]),
+                     "cerebro_tpu/ops/similarity.py:98",
+                     run["k1_launches"] + euroc_launches["K1"] + live_launches["K1"],
+                     max([x["max_abs_err"] for x in k1["shapes"]]
+                         + [euroc_checks["K1"]["max_abs_err"], live_checks["K1"]["max_abs_err"]]),
                      main_k1),
         k2_euroc_entry(k2_entry, euroc_checks),
         k3_main,
@@ -1698,6 +2089,20 @@ def euroc_kernel_entries(checks: dict, launches: dict) -> list:
                      checks["K1_d191"]["max_abs_err"], checks["K1_d191"]),
     ]
     check(all(e["launches"] > 0 for e in entries), "a kernel of the euroc runs never launched")
+    return entries
+
+
+def live_kernel_entries(checks: dict, launches: dict) -> list:
+    """The kernels line of ``--phase live``: K1 and K3 held and timed on
+    the live run's own data, with the stream's and the drain's launches.
+    K2 is not on this path (Method A top-1)."""
+    entries = [
+        kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
+                     "cerebro_tpu/ops/similarity.py:98", launches["K1"],
+                     checks["K1"]["max_abs_err"], checks["K1"]),
+        k3_entry(checks["K3"], launches["K3"]),
+    ]
+    check(all(e["launches"] > 0 for e in entries), "a kernel of the live run never launched")
     return entries
 
 

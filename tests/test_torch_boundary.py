@@ -38,6 +38,9 @@ import cerebro_tpu_torch.models.gist
 import cerebro_tpu_torch.models.wpca
 import cerebro_tpu_torch.utils.plot
 import cerebro_tpu_torch.run_euroc
+import cerebro_tpu_torch.runtime
+import cerebro_tpu_torch.runtime.service
+import cerebro_tpu_torch.native
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))
@@ -78,19 +81,24 @@ def test_photoworld_reads_only_the_bundled_photos():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def _port_sources():
+def _port_sources(suffixes=(".py",)):
     root = os.path.join(REPO, "cerebro_tpu_torch")
     for dirpath, _, files in os.walk(root):
+        if "_build" in dirpath.split(os.sep):
+            continue
         for f in files:
-            if f.endswith(".py"):
+            if f.endswith(suffixes):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(REPO, "chip_smoke.py")
+    if ".py" in suffixes:
+        yield os.path.join(REPO, "chip_smoke.py")
 
 
 _FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+cerebro_tpu(\.|\s|$)|from\s+cerebro_tpu(\.|\s))",
     re.M,
 )
+# a C++/CUDA source that includes or names a file of the JAX package
+_FORBIDDEN_NATIVE = re.compile(r"^\s*#\s*include\s*[\"<][^\">]*cerebro_tpu/|cerebro_tpu/native", re.M)
 
 
 def test_sources_import_no_jax_or_reference_package():
@@ -100,6 +108,47 @@ def test_sources_import_no_jax_or_reference_package():
             for m in _FORBIDDEN.finditer(fh.read()):
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
     assert not hits, hits
+    sources = [os.path.relpath(p, REPO) for p in _port_sources()]
+    assert os.path.join("cerebro_tpu_torch", "native", "__init__.py") in sources
+
+
+def test_native_sources_are_the_ports_own():
+    paths = list(_port_sources((".cpp", ".cu", ".h")))
+    rel = [os.path.relpath(p, REPO) for p in paths]
+    assert os.path.join("cerebro_tpu_torch", "native", "src", "ingest.cpp") in rel
+    hits = []
+    for path in paths:
+        with open(path) as fh:
+            for m in _FORBIDDEN_NATIVE.finditer(fh.read()):
+                hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
+    assert not hits, hits
+
+
+_NATIVE_PROBE = """
+import json, sys
+from cerebro_tpu_torch.native import make_ingest, library_path
+ing = make_ingest()
+ing.push_image(10**9)
+with open("/proc/self/maps") as f:
+    libs = sorted({line.split()[-1] for line in f if "cerebro_ingest" in line})
+print(json.dumps({"libs": libs, "expected": str(library_path()),
+                  "modules": sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "cerebro_tpu.")) or m == "cerebro_tpu")}))
+"""
+
+
+def test_make_ingest_loads_only_the_ports_library():
+    """The engine make_ingest loads is the port's build under
+    cerebro_tpu_torch/_build/, never cerebro_tpu/native's library."""
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["modules"] == []
+    assert [os.path.realpath(p) for p in got["libs"]] == [os.path.realpath(got["expected"])]
+    assert os.sep + os.path.join("cerebro_tpu_torch", "_build") + os.sep in got["expected"]
 
 
 @pytest.mark.parametrize(

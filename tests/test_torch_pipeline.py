@@ -165,13 +165,14 @@ def test_settings_not_ported_raise(tmp_path, change):
 
 
 def test_runtime_paths_not_ported_raise(tmp_path):
+    """A mesh is still not ported; a depth image is (tests/test_torch_depth.py)."""
     cfg = _base_cfg(tmp_path)
     with pytest.raises(NotImplementedError):
         CerebroPipeline(cfg, rig=TRIG, mesh=object(), device="cpu")
     pipe = CerebroPipeline(cfg, rig=TRIG, device="cpu")
     img = np.zeros((H, W), np.uint8)
-    with pytest.raises(NotImplementedError):
-        pipe.ingest_frame(0.0, img, n_tracked=100, depth_img=np.ones((H, W), np.float32))
+    pipe.ingest_frame(0.0, img, n_tracked=100, depth_img=np.ones((H, W), np.float32))
+    assert pipe.images.get("depth", 0) is not None
     pipe.close()
 
 
@@ -435,4 +436,101 @@ def test_run_sequence_verifies_at_the_default_config(tmp_path, stream):
     assert {(e.idx_curr, e.idx_prev) for e in tp.loop_edges} == {
         (e.idx_curr, e.idx_prev) for e in jp.loop_edges
     }
+    tp.close()
+
+
+# ---------------------------------------------------------------------------
+# warmup
+# ---------------------------------------------------------------------------
+
+
+def _gist_cfg(tmp_path, **loop):
+    cfg = _port_config(small_config(tmp_path))
+    return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, **loop)) if loop else cfg
+
+
+def test_warmed_pipeline_equals_cold(tmp_path, stream):
+    """tests/test_pipeline.py:642-675 and more: a pipeline warmed with every
+    kind of warm call (detect, verify in both tiers, a pose-graph solve)
+    gives the same candidates and the same edges, bit for bit, as a cold
+    one, and warmup leaves the verification generator where it was."""
+
+    def run(warm: bool):
+        pipe = CerebroPipeline(_gist_cfg(tmp_path), rig=TRIG, device="cpu")
+        state = pipe._generator.get_state().clone()
+        if warm:
+            detail = pipe.warmup(verify_device_batches=(2,), optimize_node_buckets=(32,))
+            assert set(detail) >= {"describe", "detect", "optimize_n32_l32", "verify_tier2_batch2"}
+            assert torch.equal(pipe._generator.get_state(), state)
+            assert pipe.store.size == 0 and not pipe.db_gid_to_store
+            assert pipe.db.count == pipe.db.total == 0
+            assert not pipe.loop_edges and not pipe.rejected_candidates
+            assert pipe.escalated_to_tier2 == pipe.tier2_accepted == 0
+            assert pipe.timer.stats() == {}
+        _feed(pipe, stream)
+        cands = [(c.idx_curr, c.idx_prev, c.score) for c in pipe.candidates]
+        pipe.verify_pending()
+        edges = [(e.idx_curr, e.idx_prev, e.T_prev_curr, e.n_matches) for e in pipe.loop_edges]
+        rejected = [(r.idx_curr, r.idx_prev, r.reason) for r in pipe.rejected_candidates]
+        pipe.close()
+        return cands, edges, rejected
+
+    (cw, ew, rw), (cc, ec, rc) = run(warm=True), run(warm=False)
+    assert cw == cc and len(cw) >= 1
+    assert rw == rc
+    assert len(ew) == len(ec) >= 1
+    for a, b in zip(ew, ec):
+        assert a[:2] == b[:2] and a[3] == b[3]
+        np.testing.assert_array_equal(a[2], b[2])
+
+
+@pytest.mark.parametrize("loop", [{}, {"candidates_per_query": 3}, {"method": "D"}], ids=["A", "A_top3", "D"])
+def test_warmup_leaves_a_wrapped_ring_untouched(tmp_path, loop):
+    """More rows appended than the DB holds: the ring has wrapped, and its
+    oldest rows sit where warmup's zero-valid append would land (the port's
+    append writes in place). Every DB field and detection carry is
+    bit-equal after warmup."""
+    import copy
+
+    pipe = CerebroPipeline(_gist_cfg(tmp_path, db_capacity=8, **loop), rig=TRIG, device="cpu")
+    rng = np.random.default_rng(3)
+    for i in range(13):
+        pipe.ingest_frame(float(i), rng.integers(0, 255, (H, W)).astype(np.uint8), n_tracked=100)
+    pipe.flush_descriptors()
+    assert pipe.db.total == 13 > pipe.db.capacity == pipe.db.count == 8
+    db = (pipe.db.vectors.clone(), pipe.db.global_ids.clone(), pipe.db.total, pipe.db.count)
+    carries = copy.deepcopy((pipe.det_state, pipe.det_state_b, pipe.clique_state,
+                             pipe.topk_state, pipe.hyp_table))
+    live_db = pipe.db
+    pipe.warmup()
+    assert pipe.db is live_db
+    assert torch.equal(pipe.db.vectors, db[0]) and torch.equal(pipe.db.global_ids, db[1])
+    assert (pipe.db.total, pipe.db.count) == db[2:]
+    after = (pipe.det_state, pipe.det_state_b, pipe.clique_state, pipe.topk_state, pipe.hyp_table)
+    for a, b in zip(after, carries):
+        for f in dataclasses.fields(a):
+            assert torch.equal(getattr(a, f.name), getattr(b, f.name)), f.name
+    pipe.close()
+
+
+def test_warmup_keys_match_jax(tmp_path):
+    """The same arguments give the JAX package's keys, and the same verify
+    warm calls (tier, group size) through the live dispatch path."""
+    kw = dict(verify_device_batches=(2, 8), optimize_node_buckets=(16,), optimize_loop_buckets=(16, 32))
+    jcfg = small_config(tmp_path / "j")
+    jp = JPipeline(jcfg, rig=make_rig())
+    tp = CerebroPipeline(_port_config(jcfg), rig=TRIG, device="cpu")
+    calls = {}
+    for name, pipe in (("jax", jp), ("torch", tp)):
+        seen = calls[name] = []
+        pipe._verify_chunks = (
+            lambda loadable, vcfg, device_batch, escalate=None, seen=seen:
+            seen.append((vcfg.matcher, len(loadable), device_batch)) or 0
+        )
+    want, got = jp.warmup(**kw), tp.warmup(**kw)
+    assert set(got) == set(want)
+    assert calls["torch"] == calls["jax"] == [
+        (m, n, n) for m in ("steerable", "gather") for n in (1, 2, 8)
+    ]
+    assert got["total"] >= max(v for k, v in got.items() if k != "total")
     tp.close()
