@@ -56,6 +56,11 @@ class DescriptorDB:
         """The descriptor width (columns past it are zero padding)."""
         return self.vectors.shape[1] if self.logical_dim is None else self.logical_dim
 
+    @property
+    def width(self) -> int:
+        """The stored row width."""
+        return self.vectors.shape[1]
+
 
 def row_width(dim: int, device) -> int:
     """Stored row width of a ``dim``-wide DB on ``device``: ``dim`` rounded
@@ -81,7 +86,7 @@ def pad_queries(db: DescriptorDB, queries: torch.Tensor) -> torch.Tensor:
     rows are not padded)."""
     if queries.shape[1] != db.dim:
         raise ValueError(f"queries are {queries.shape[1]} wide, the DB holds {db.dim}")
-    pad = db.vectors.shape[1] - db.dim
+    pad = db.width - db.dim
     return torch.nn.functional.pad(queries, (0, pad)) if pad else queries
 
 
@@ -92,27 +97,30 @@ def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
     Rows of the batch past ``n_new`` are written with GID_INVALID so they
     stay unmatchable until real entries overwrite them.
     """
-    B = descs.shape[0]
-    cap = db.capacity
     if descs.shape[1] != db.dim:
         raise ValueError(f"descriptors are {descs.shape[1]} wide, the DB holds {db.dim}")
+    rows, gids = _ring_rows(db, descs.shape[0], n_new)
+    # in place: the ring rows and their ids are overwritten at the head
+    # (padding columns, if any, stay zero)
+    db.vectors[rows, : db.dim] = descs.to(device=db.vectors.device, dtype=db.vectors.dtype)
+    db.global_ids[rows] = gids
+    db.total += int(n_new)
+    db.count = min(db.total, db.capacity)
+    return db
+
+
+def _ring_rows(db, B: int, n_new: int):
+    """(ring rows, global ids) of a B-row batch whose first ``n_new`` rows
+    are real, at the ring head."""
+    cap = db.capacity
     if B > cap:
         raise ValueError(f"batch {B} exceeds DB capacity {cap}")
     if not 0 <= n_new <= B:
         raise ValueError(f"n_new={n_new} outside [0, {B}]")
-    dev = db.vectors.device
-    j = torch.arange(B, dtype=torch.int64, device=dev)
+    j = torch.arange(B, dtype=torch.int64, device=db.global_ids.device)
     rows = (db.total + j) % cap
-    gids = torch.where(
-        j < n_new, db.total + j, torch.full_like(j, GID_INVALID)
-    ).to(torch.int32)
-    # in place: the ring rows and their ids are overwritten at the head
-    # (padding columns, if any, stay zero)
-    db.vectors[rows, : db.dim] = descs.to(device=dev, dtype=db.vectors.dtype)
-    db.global_ids[rows] = gids
-    db.total += int(n_new)
-    db.count = min(db.total, cap)
-    return db
+    gids = torch.where(j < n_new, db.total + j, torch.full_like(j, GID_INVALID)).to(torch.int32)
+    return rows, gids
 
 
 def query_limits(
@@ -124,6 +132,61 @@ def query_limits(
     return torch.clamp(global_idx.to(torch.int32) - exclusion, 0, db.total).to(
         torch.int32
     )
+
+
+# ---------------------------------------------------------------------------
+# Int8-quantized DB: the same contract, half the memory per row of the
+# bf16 DB, searched by an int8 product (ops/similarity.max_and_argmax_int8).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class QuantizedDB:
+    values: torch.Tensor  # (capacity, width) int8
+    scales: torch.Tensor  # (capacity,) f32 per-row dequantization scale
+    global_ids: torch.Tensor  # (capacity,) int32, GID_INVALID if empty
+    count: int = 0
+    total: int = 0
+    logical_dim: int | None = None
+
+    @property
+    def capacity(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.values.shape[1] if self.logical_dim is None else self.logical_dim
+
+    @property
+    def width(self) -> int:
+        return self.values.shape[1]
+
+
+def create_quantized(capacity: int, dim: int, device="cuda") -> QuantizedDB:
+    """An empty int8 DB; on CUDA its rows are padded as ``create``'s are."""
+    return QuantizedDB(
+        values=torch.zeros((capacity, row_width(dim, device)), dtype=torch.int8, device=device),
+        scales=torch.zeros((capacity,), dtype=torch.float32, device=device),
+        global_ids=torch.full((capacity,), GID_INVALID, dtype=torch.int32, device=device),
+        logical_dim=dim,
+    )
+
+
+def append_quantized(db: QuantizedDB, descs: torch.Tensor, n_new: int) -> QuantizedDB:
+    """Quantize the batch per row (``quantize_rows``) and append it at the
+    ring head, in place, with ``append``'s ring semantics; returns ``db``."""
+    from cerebro_tpu_torch.ops.similarity import quantize_rows
+
+    if descs.shape[1] != db.dim:
+        raise ValueError(f"descriptors are {descs.shape[1]} wide, the DB holds {db.dim}")
+    rows, gids = _ring_rows(db, descs.shape[0], n_new)
+    q, s = quantize_rows(descs.to(db.values.device))
+    db.values[rows, : db.dim] = q
+    db.scales[rows] = s
+    db.global_ids[rows] = gids
+    db.total += int(n_new)
+    db.count = min(db.total, db.capacity)
+    return db
 
 
 def from_rows(vectors: torch.Tensor, n_valid: int | None = None) -> DescriptorDB:

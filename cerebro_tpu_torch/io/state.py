@@ -10,13 +10,14 @@ A checkpoint directory holds
 
   * ``descriptor_db.npz``: ``vectors`` (a bf16 DB as its raw 16-bit
     pattern, ``vectors_dtype`` naming the dtype; the logical width, no
-    padding), ``global_ids``, ``count`` and ``total`` (the JAX package
-    writes an orbax checkpoint here, which the port does not read);
+    padding), or for the int8 DB ``values`` (int8, the logical width) and
+    ``scales``; then ``global_ids``, ``count`` and ``total`` (the JAX
+    package writes an orbax checkpoint here, which the port does not read);
   * ``keyframes.npz``, the v2 ``manifest.json`` and ``images/``, written as
-    the JAX package writes them.
+    the JAX package writes them; ``db_quantized`` says which DB it holds.
 
-The int8 DB is not ported (ROADMAP Queue 1 item 7): a quantized manifest
-raises ``NotImplementedError``.
+A quantized checkpoint loads only into a config with ``loop.quantized``,
+and a float one only into a config without it.
 """
 
 from __future__ import annotations
@@ -28,6 +29,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from cerebro_tpu_torch.config import CerebroConfig
+from cerebro_tpu_torch.db import descriptors as ddb
 from cerebro_tpu_torch.db.images import ImageStore
 from cerebro_tpu_torch.db.keyframes import KeyframeStore
 from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline, LoopEdge
@@ -36,6 +39,17 @@ _DB_FILE = "descriptor_db.npz"
 
 
 def _db_arrays(db) -> dict:
+    ring = {
+        "global_ids": db.global_ids.cpu().numpy(),
+        "count": np.asarray(db.count, np.int64),
+        "total": np.asarray(db.total, np.int64),
+    }
+    if isinstance(db, ddb.QuantizedDB):
+        return {
+            "values": db.values[:, : db.dim].cpu().numpy(),
+            "scales": db.scales.cpu().numpy(),
+            **ring,
+        }
     vectors = db.vectors[:, : db.dim].cpu()
     if vectors.dtype == torch.bfloat16:
         bits = vectors.view(torch.int16).numpy().view(np.uint16)
@@ -44,27 +58,31 @@ def _db_arrays(db) -> dict:
     return {
         "vectors": bits,
         "vectors_dtype": np.asarray(str(vectors.dtype).removeprefix("torch.")),
-        "global_ids": db.global_ids.cpu().numpy(),
-        "count": np.asarray(db.count, np.int64),
-        "total": np.asarray(db.total, np.int64),
+        **ring,
     }
 
 
-def _restore_db(db, z) -> None:
-    """Write a saved DB into ``db`` (a fresh one of the same capacity and
-    width) in place."""
+def _saved_vectors(z) -> torch.Tensor:
     dtype = getattr(torch, str(z["vectors_dtype"]))
     vec = z["vectors"]
     if dtype == torch.bfloat16:
-        vectors = torch.from_numpy(vec.view(np.int16)).view(torch.bfloat16)
-    else:
-        vectors = torch.from_numpy(vec).to(dtype)
-    if vectors.shape != (db.capacity, db.dim):
+        return torch.from_numpy(vec.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(vec).to(dtype)
+
+
+def _restore_db(db, z) -> None:
+    """Write a saved DB into ``db`` (a fresh one of the same kind, capacity
+    and width) in place."""
+    quantized = isinstance(db, ddb.QuantizedDB)
+    rows = torch.from_numpy(z["values"]) if quantized else _saved_vectors(z)
+    if rows.shape != (db.capacity, db.dim):
         raise ValueError(
-            f"checkpoint DB is {tuple(vectors.shape)}, the pipeline's is "
-            f"({db.capacity}, {db.dim})"
+            f"checkpoint DB is {tuple(rows.shape)}, the pipeline's is ({db.capacity}, {db.dim})"
         )
-    db.vectors[:, : db.dim] = vectors.to(device=db.vectors.device, dtype=db.vectors.dtype)
+    target = db.values if quantized else db.vectors
+    target[:, : db.dim] = rows.to(device=target.device, dtype=target.dtype)
+    if quantized:
+        db.scales.copy_(torch.from_numpy(z["scales"]))
     db.global_ids.copy_(torch.from_numpy(z["global_ids"]))
     db.count = int(z["count"])
     db.total = int(z["total"])
@@ -84,7 +102,7 @@ def save_pipeline_state(pipe: CerebroPipeline, directory: str) -> None:
         "loop_edges": [e.as_json() for e in pipe.loop_edges],
         "descriptor_dim": int(pipe.db.dim),
         "db_capacity": int(pipe.db.capacity),
-        "db_quantized": False,
+        "db_quantized": isinstance(pipe.db, ddb.QuantizedDB),
     }
     with open(os.path.join(directory, "manifest.json"), "w") as f:
         json.dump(manifest, f)
@@ -96,12 +114,16 @@ def load_pipeline_state(
     cfg=None,
     rig=None,
     describe_fn=None,
+    params=None,
     describe_dim: Optional[int] = None,
     stash_dir: Optional[str] = None,
     device: Optional[str] = None,
 ) -> CerebroPipeline:
     """A pipeline built from ``cfg`` on ``device`` (the CUDA device unless
-    the caller passes ``device="cpu"``) with the checkpoint's map loaded."""
+    the caller passes ``device="cpu"``) with the checkpoint's map loaded.
+    ``params``: the descriptor net's weights (kind "netvlad"), as
+    ``CerebroPipeline`` takes them. Raises ValueError when the checkpoint's
+    DB (int8 or float) is not the kind ``cfg.loop.quantized`` asks for."""
     directory = os.path.abspath(directory)
     with open(os.path.join(directory, "manifest.json")) as f:
         manifest = json.load(f)
@@ -111,14 +133,17 @@ def load_pipeline_state(
             f"checkpoint format v{version} unsupported (this build reads v2; "
             "v1 ring-less checkpoints predate the released format)"
         )
-    if manifest.get("db_quantized", False):
-        raise NotImplementedError(
-            "a quantized checkpoint needs the int8 DB, which is not ported yet "
-            "(ROADMAP Queue 1: item 7, the int8 DB)"
+    quantized = bool(manifest.get("db_quantized", False))
+    want = (cfg or CerebroConfig()).loop.quantized
+    if quantized != want:
+        raise ValueError(
+            "checkpoint is quantized; set LoopConfig.quantized=True" if quantized
+            else "checkpoint is not quantized; set LoopConfig.quantized=False"
         )
 
     pipe = CerebroPipeline(
-        cfg=cfg, rig=rig, describe_fn=describe_fn, describe_dim=describe_dim, device=device
+        cfg=cfg, rig=rig, params=params, describe_fn=describe_fn, describe_dim=describe_dim,
+        device=device,
     )
     if pipe.db.dim != manifest["descriptor_dim"]:
         pipe.close()

@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 
 from cerebro_tpu_torch.config import LoopConfig
-from cerebro_tpu_torch.db.descriptors import DescriptorDB, query_limits
+from cerebro_tpu_torch.db.descriptors import DescriptorDB, QuantizedDB, query_limits
 from cerebro_tpu_torch.ops import similarity
 
 
@@ -215,5 +215,22 @@ def detect_batch(
     the updated carry."""
     limits = query_limits(db, global_idx, cfg.exclusion_window)
     mx, ar = similarity.max_and_argmax(queries, db.vectors, limits, db.global_ids)
+    searchable = (limits > 0) & query_valid
+    return temporal_consistency(cfg, state, mx, ar, global_idx, searchable, query_valid)
+
+
+def detect_batch_quantized(
+    cfg: LoopConfig,
+    db: QuantizedDB,
+    state: DetectorState,
+    queries: torch.Tensor,  # (B, D)
+    global_idx: torch.Tensor,  # (B,) int32
+    query_valid: torch.Tensor,  # (B,) bool
+) -> Tuple[LoopCandidates, DetectorState]:
+    """``detect_batch`` over an int8-quantized DB: the same temporal
+    consistency, scored by ``max_and_argmax_int8`` (one ``torch._int_mm``
+    on CUDA)."""
+    limits = query_limits(db, global_idx, cfg.exclusion_window)
+    mx, ar = similarity.max_and_argmax_int8(queries, db.values, db.scales, limits, db.global_ids)
     searchable = (limits > 0) & query_valid
     return temporal_consistency(cfg, state, mx, ar, global_idx, searchable, query_valid)

@@ -1,1 +1,16 @@
 """models of the PyTorch port (counterpart of cerebro_tpu.models)."""
+
+from cerebro_tpu_torch.models.backbones import (  # noqa: F401
+    MobileTrunk,
+    SeparableBlock,
+    VGGTrunk,
+    normalize_image,
+)
+from cerebro_tpu_torch.models.descriptor import (  # noqa: F401
+    DescriptorNet,
+    convert_params,
+    create_descriptor_model,
+    describe_batch,
+    load_descriptor_params,
+)
+from cerebro_tpu_torch.models.netvlad import GhostVLAD, NetVLAD  # noqa: F401

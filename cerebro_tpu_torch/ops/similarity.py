@@ -22,6 +22,12 @@ count the two kinds of launch apart. Unlike the JAX package, which sends
 score matrices up to 256 MB to XLA (a v5e routing measurement), every CUDA
 call goes to the kernel; a routing threshold needs H100 measurements first.
 
+The int8 DB's search (``max_and_argmax_int8``) is no Pallas kernel in the
+JAX package either (an int8 ``dot_general`` in XLA): on CUDA it is one
+``torch._int_mm`` (int8 x int8 -> int32 on the tensor cores), then the
+scales, the mask and the argmax in PyTorch; ``INT8_MM.launches`` counts
+those products.
+
 ``search_topk`` returns exactly what the JAX package's dense ``search_topk``
 (``lax.top_k`` over the masked score matrix) returns, on every slot: masked
 rows take part in the selection at NEG_INF, so the slots past a query's last
@@ -36,6 +42,7 @@ valid after the ring wraps.
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -48,6 +55,7 @@ _I = ctypes.c_int
 _TOPK_ARGS = {"score_topk_launch": [_P] * 9 + [_I] * 6 + [_P]}
 K1 = Kernel("score_topk.cu", _TOPK_ARGS)  # max_and_argmax
 K2 = Kernel("score_topk.cu", _TOPK_ARGS)  # max_and_argmax_banned, search_topk
+INT8_MM = types.SimpleNamespace(launches=0)  # torch._int_mm calls of the int8 search
 
 # The kernel's instantiated list sizes: k is rounded up to the next one
 # (callers use k = 1, 3, 5: the pipeline's top-3 runs the K = 4 list).
@@ -262,3 +270,82 @@ def search_topk(
     if db.is_cuda:
         return search_topk_cuda(queries, db, limits, gids, k)
     return search_topk_plain(queries, db, limits, gids, k)
+
+
+# ---------------------------------------------------------------------------
+# Int8-quantized search: half the HBM per row of the bf16 DB. Descriptors
+# are unit-norm, so symmetric per-row scaling loses ~1e-2 in the dot
+# product, far inside the 0.85 detection threshold's margin.
+# ---------------------------------------------------------------------------
+
+
+def quantize_rows(x: torch.Tensor):
+    """(N, D) float -> (values int8 (N, D), scales f32 (N,)): symmetric per
+    row, round half to even, as the JAX package's ``quantize_rows`` (whose
+    ``/ 127.0`` XLA compiles to a product with the f32 reciprocal)."""
+    x = x.float()
+    scale = torch.clamp(x.abs().max(dim=-1).values, min=1e-12) * (1.0 / 127.0)
+    q = torch.clamp(torch.round(x / scale[:, None]), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def int8_scores_plain(q_q: torch.Tensor, db_q: torch.Tensor) -> torch.Tensor:
+    """(Q, N) int32 products of int8 rows, exact on any device: the f64
+    product of integers below 2^7 sums exactly for D up to 2^39, and the
+    sums (at most 127^2 * D) fit int32 for D up to 133,000."""
+    return (q_q.double() @ db_q.double().T).to(torch.int32)
+
+
+def int8_scores_cuda(q_q: torch.Tensor, db_q: torch.Tensor) -> torch.Tensor:
+    """(Q, N) int32 products of int8 rows on CUDA tensors: one
+    ``torch._int_mm``. Its int8 GEMM takes more than 16 rows and widths that
+    are multiples of 8, so the queries are padded with zero rows; the
+    (N, D) row-major DB, transposed, is the column-major second operand."""
+    Q, D = q_q.shape
+    N = db_q.shape[0]
+    if not (q_q.is_cuda and db_q.is_cuda):
+        raise ValueError("int8_scores_cuda needs CUDA tensors")
+    if D % 8 != 0 or N % 8 != 0:
+        raise ValueError(f"the int8 product needs D and N divisible by 8, got D={D}, N={N}")
+    rows = max(24, -(-Q // 8) * 8)
+    a = torch.nn.functional.pad(q_q, (0, 0, 0, rows - Q)) if rows != Q else q_q
+    INT8_MM.launches += 1
+    return torch._int_mm(a.contiguous(), db_q.T)[:Q]
+
+
+def _int8_select(scores_fn, queries, db_q, db_scale, limits, gids):
+    q_q, q_scale = quantize_rows(queries)
+    s = scores_fn(q_q.to(db_q.device), db_q)
+    # JAX's order: the scales, then the mask, then the first-max argmax
+    s = s.float() * q_scale.to(s.device)[:, None] * db_scale.float()[None, :]
+    g = _row_gids(gids, db_q)
+    s = torch.where(g[None, :] < limits[:, None].to(torch.int32), s, torch.full_like(s, NEG_INF))
+    return s.max(dim=1).values, g[s.argmax(dim=1)]
+
+
+def max_and_argmax_int8_plain(queries, db_q, db_scale, limits, gids=None):
+    """``max_and_argmax_int8`` through the plain exact product."""
+    return _int8_select(int8_scores_plain, queries, db_q, db_scale, limits, gids)
+
+
+def max_and_argmax_int8_cuda(queries, db_q, db_scale, limits, gids=None):
+    """``max_and_argmax_int8`` on CUDA tensors: one ``torch._int_mm``."""
+    return _int8_select(int8_scores_cuda, queries, db_q, db_scale, limits, gids)
+
+
+def max_and_argmax_int8(
+    queries: torch.Tensor,  # (Q, D) float
+    db_q: torch.Tensor,  # (N, D) int8
+    db_scale: torch.Tensor,  # (N,) f32
+    limits: torch.Tensor,  # (Q,) int32
+    gids: torch.Tensor | None = None,  # (N,) int32
+):
+    """Per-query (max, matched gid) over an int8-quantized DB: the queries
+    quantized per row, the exact int8 x int8 -> int32 product, then, in the
+    JAX package's order, ``s * q_scale * db_scale``, the mask and the
+    first-max argmax, so gids and maxima equal JAX's.
+
+    CPU tensors take the plain product; CUDA tensors one ``torch._int_mm``."""
+    if db_q.is_cuda:
+        return max_and_argmax_int8_cuda(queries, db_q, db_scale, limits, gids)
+    return max_and_argmax_int8_plain(queries, db_q, db_scale, limits, gids)

@@ -10,7 +10,7 @@ candidates, optimizes the trajectory, and writes ``report.json``,
 
 Usage:
   python -m cerebro_tpu_torch.run_euroc /data/MH_01_easy/mav0 --out DIR \\
-      [--descriptor ported|gist] [--stride 2] [--max-frames N] [--cpu] \\
+      [--descriptor ported|gist|netvlad] [--stride 2] [--max-frames N] [--cpu] \\
       [--ate [--odom-drift D]] [--save-state DIR | --load-state DIR] \\
       [--trace DIR] [--config RIG.yaml]
 
@@ -54,7 +54,8 @@ def parse_args(argv=None):
     ap.add_argument(
         "--descriptor", default="ported", choices=["ported", "gist", "netvlad"],
         help="'ported' runs the reference's own trained flagship weights "
-             "(artifacts/descriptor_ported); 'netvlad' is not ported yet",
+             "(artifacts/descriptor_ported); 'netvlad' the in-framework net "
+             "with its seeded weights; 'gist' the training-free descriptor",
     )
     ap.add_argument("--stride", type=int, default=2)
     ap.add_argument("--max-frames", type=int, default=None)

@@ -8,8 +8,9 @@ cerebro_tpu/runtime/pipeline.py).
       descriptor batch queue  (ref descriptor_computer_thread @20 Hz + RPC)
     -- when a batch fills (or flush_descriptors()):
       describe -> DB append -> detect                 on the device
-        Method A top-1: kernel K1; Method A top-k and Methods B, C, D:
-        one launch of kernel K2 (ops/similarity.search_topk)
+        Method A top-1: kernel K1 (an int8 DB: one torch._int_mm);
+        Method A top-k and Methods B, C, D: one launch of kernel K2
+        (ops/similarity.search_topk)
       candidate gates (Δt, shared tracks)             (ref dot-product thread)
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
       tier-1 verification (kernel K3 for depth) -> LoopEdge; pairs that
@@ -24,8 +25,11 @@ the device per batch. ``StreamIngestor`` feeds ``ingest_frame`` from
 producer threads through the native association engine
 (``cerebro_tpu_torch/native``); ``runtime/service.py`` runs the whole node.
 
-Settings the port does not run raise ``NotImplementedError`` naming the
-ROADMAP item that covers them; none is approximated.
+The descriptor is the in-framework NetVLAD / GhostVLAD net (the default
+kind, ``models/descriptor.py``), the reference's ported MobileNet or gist;
+the DB is bf16 or, with ``loop.quantized``, int8 (searched by an int8
+product). A mesh, the one setting the port does not run, raises
+``NotImplementedError`` naming the ROADMAP item that covers it.
 """
 
 from __future__ import annotations
@@ -49,6 +53,11 @@ from cerebro_tpu_torch.db.keyframes import KeyframeStore
 from cerebro_tpu_torch.geometry import stereo
 from cerebro_tpu_torch.kidnap import KidnapMonitor
 from cerebro_tpu_torch.loop import detector, hypothesis, topk_methods
+from cerebro_tpu_torch.models.descriptor import (
+    convert_params,
+    create_descriptor_model,
+    describe_batch,
+)
 from cerebro_tpu_torch.models.gist import gist_descriptors
 from cerebro_tpu_torch.models.wpca import load_wpca, whitened_describe_fn
 from cerebro_tpu_torch.ops import similarity
@@ -67,6 +76,14 @@ _Q1 = "ROADMAP Queue 1"
 
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({_Q1}: {item})")
+
+
+def _descriptor_state(params, dcfg, device) -> dict:
+    """A DescriptorNet state on ``device`` from a PyTorch state (tensors
+    under the net's names) or from flax params as numpy arrays."""
+    if all(isinstance(v, torch.Tensor) for v in params.values()):
+        return {k: v.to(device) for k, v in params.items()}
+    return convert_params(params, dcfg, device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,6 +143,7 @@ class CerebroPipeline:
         self,
         cfg: Optional[CerebroConfig] = None,
         rig: Optional[stereo.RectifiedRig] = None,
+        params=None,  # netvlad kind: a DescriptorNet state, or flax-shaped numpy params
         describe_fn=None,  # optional override: (B,H,W,C) uint8 tensor -> (B,D)
         describe_dim: Optional[int] = None,  # D of describe_fn's output
         mesh=None,
@@ -139,7 +157,12 @@ class CerebroPipeline:
         ``body_T_cam``: poses arrive as w_T_cam, but the 4-DOF pose graph
         reasons in a gravity-aligned body frame (the reference's external
         solver likewise consumes imu_T_cam, README.md:176-194). None means
-        the camera is the body frame."""
+        the camera is the body frame.
+
+        ``params`` (kind "netvlad"): the net's weights, either a PyTorch
+        state of ``models.descriptor.DescriptorNet`` or the JAX package's
+        flax params as numpy arrays; None draws the JAX package's seeded
+        initialization (``seed``)."""
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -149,7 +172,7 @@ class CerebroPipeline:
             device = "cuda"
         self.device = torch.device(device)
         self.cfg = cfg or CerebroConfig()
-        self._check_supported(mesh, describe_fn)
+        self._check_supported(mesh)
         self.rig = rig
         self.body_T_cam = None if body_T_cam is None else np.asarray(body_T_cam, np.float32)
         self.store = KeyframeStore()
@@ -165,7 +188,7 @@ class CerebroPipeline:
         elif dcfg.kind == "gist":
             dim = dcfg.num_clusters * dcfg.trunk_dim
             self.describe_fn = lambda imgs, _d=dim: gist_descriptors(imgs, dim=_d)
-        else:
+        elif dcfg.kind == "ported":
             # the reference's trained flagship weights (models/mobilenet.py)
             from cerebro_tpu_torch.models.mobilenet import load_ported_params, ported_forward
 
@@ -177,14 +200,26 @@ class CerebroPipeline:
             self.describe_fn = lambda imgs: ported_forward(
                 self.params, imgs, dtype=pdtype, input_scale=scale
             )
+        elif dcfg.kind == "netvlad":
+            # the in-framework NetVLAD / GhostVLAD net (models/descriptor.py)
+            self.net, self.params = create_descriptor_model(dcfg, seed=seed, device=self.device)
+            if params is not None:
+                self.params = _descriptor_state(params, dcfg, self.device)
+            self.describe_fn = lambda imgs: describe_batch(self.net, self.params, imgs)
+            dim = self.net.descriptor_dim
+        else:
+            raise ValueError(f"unknown descriptor kind {dcfg.kind!r}")
         if dcfg.wpca_artifact:
             # the ReljaNetVLAD shape: net -> WPCA whitening -> L2
             # (ref scripts/whole_image_desc_compute_server.py:62-165)
             wp = load_wpca(dcfg.wpca_artifact)
             self.describe_fn = whitened_describe_fn(self.describe_fn, wp)
             dim = wp.out_dim
-        self.db = ddb.create(self.cfg.loop.db_capacity, dim, device=self.device)
         lcfg = self.cfg.loop
+        if lcfg.quantized:
+            self.db = ddb.create_quantized(lcfg.db_capacity, dim, device=self.device)
+        else:
+            self.db = ddb.create(lcfg.db_capacity, dim, device=self.device)
         self.det_state = detector.init_state(self.device)
         # Method-B carry (Method A's 2-entry state on the rank-0 hit)
         self.det_state_b = detector.init_state(self.device)
@@ -226,15 +261,20 @@ class CerebroPipeline:
         self.log_queries = False
         self.query_log: List[tuple] = []
 
-    def _check_supported(self, mesh, describe_fn):
+    def _check_supported(self, mesh):
         cfg = self.cfg
-        if describe_fn is None and cfg.descriptor.kind not in ("ported", "gist"):
-            _not_ported(
-                f"descriptor kind {cfg.descriptor.kind!r}",
-                "item 7, models/netvlad.py and models/descriptor.py",
-            )
         if cfg.loop.quantized:
-            _not_ported("the int8-quantized DB", "item 7, the int8 DB")
+            if cfg.loop.method != "A":
+                raise ValueError("the quantized DB supports method A")
+            if cfg.loop.candidates_per_query > 1:
+                raise ValueError("the quantized DB supports single-argmax Method A")
+            # torch._int_mm takes the DB's rows as its N, a multiple of 8;
+            # fail here rather than at the first detect batch
+            if self.device.type == "cuda" and cfg.loop.db_capacity % 8:
+                raise ValueError(
+                    "the quantized DB on CUDA needs loop.db_capacity divisible by 8 "
+                    f"(the int8 product's row count), got {cfg.loop.db_capacity}"
+                )
         if mesh is not None:
             _not_ported("a multi-device mesh", "item 7, parallel/")
         # K2 holds each query's top-k in registers, so its list size is
@@ -277,12 +317,12 @@ class CerebroPipeline:
         from the start of warmup to that step's completion.
 
         Every warm call runs on throwaway state, and everything a warm call
-        could touch is restored. Detection searches a throwaway DB of
-        ``descriptor_batch`` rows (or a top-k's size, if larger): the port's
-        ``ddb.append`` works in place, so the live ring is never appended
-        to. The detection carries, the verification generator's state, the
-        edge and rejection lists, the cascade counters and the stage timer
-        are put back. (The JAX package's warmup advances its verification
+        could touch is restored. Detection searches a throwaway DB (float
+        or int8, as the live one) of ``descriptor_batch`` rows (or a top-k's
+        size, if larger), rounded up to a multiple of 8: the port's appends
+        work in place, so the live ring is never appended to. The detection
+        carries, the verification generator's state, the edge and rejection
+        lists, the cascade counters and the stage timer are put back. (The JAX package's warmup advances its verification
         key; the port keeps the contract that a warmed engine and a cold
         one give the same results.)"""
         from cerebro_tpu_torch import native
@@ -313,8 +353,13 @@ class CerebroPipeline:
 
             # at least as many rows as a top-k search asks for
             rows = max(B, self.cfg.loop.top_k, self.cfg.loop.candidates_per_query)
-            self.db = ddb.create(rows, saved[0].dim, dtype=saved[0].vectors.dtype, device=self.device)
-            ddb.append(self.db, descs, 0)
+            rows = -(-rows // 8) * 8  # the int8 product takes N % 8 == 0
+            if isinstance(saved[0], ddb.QuantizedDB):
+                self.db = ddb.create_quantized(rows, saved[0].dim, device=self.device)
+                ddb.append_quantized(self.db, descs, 0)
+            else:
+                self.db = ddb.create(rows, saved[0].dim, dtype=saved[0].vectors.dtype, device=self.device)
+                ddb.append(self.db, descs, 0)
             gidx = torch.arange(B, dtype=torch.int32, device=self.device)
             qvalid = torch.ones(B, dtype=torch.bool, device=self.device)
             self._run_method(ddb.pad_queries(self.db, descs), gidx, qvalid, 0)
@@ -458,7 +503,11 @@ class CerebroPipeline:
         row0 = len(self.db_gid_to_store)
         gidx = torch.arange(row0, row0 + B, dtype=torch.int32, device=self.device)
         qvalid = torch.arange(B, device=self.device) < n_valid
-        ddb.append(self.db, descs, n_valid)  # in place: the ring head advances
+        # in place: the ring head advances
+        if isinstance(self.db, ddb.QuantizedDB):
+            ddb.append_quantized(self.db, descs, n_valid)
+        else:
+            ddb.append(self.db, descs, n_valid)
         # queries padded as the DB's rows are (a CUDA DB of width % 8 != 0)
         deferred = self._run_method(ddb.pad_queries(self.db, descs), gidx, qvalid, n_valid)
         self.db_gid_to_store.extend(store_idx[:n_valid])
@@ -473,9 +522,8 @@ class CerebroPipeline:
         cfg = self.cfg.loop
         method = cfg.method
         if method == "A" and cfg.candidates_per_query <= 1:
-            cands, self.det_state = detector.detect_batch(
-                cfg, self.db, self.det_state, descs, gidx, qvalid
-            )
+            detect = detector.detect_batch_quantized if cfg.quantized else detector.detect_batch
+            cands, self.det_state = detect(cfg, self.db, self.det_state, descs, gidx, qvalid)
             return ("A", cands, n_valid)
         if method not in ("A", "B", "C", "D"):
             raise ValueError(f"unknown loop method {method!r}")

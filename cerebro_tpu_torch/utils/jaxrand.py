@@ -17,10 +17,20 @@ matrices and cannot import JAX, so this module computes them:
     erfinv polynomial (M. Giles' single-precision approximation), evaluated
     in f32. XLA may contract some products into FMAs, so a value can differ
     from JAX's in the last bits (~5% of the values, by at most 5e-7 for the
-    seeds in use; tests/test_torch_gather.py holds them within 3e-5).
+    seeds in use; tests/test_torch_gather.py holds them within 3e-5);
+  * ``fold_in(key, data)`` is threefry2x32 of the counter (0, data) under
+    ``key``; ``uniform`` and ``truncated_normal`` follow ``jax.random``'s
+    f32 paths (``truncated_normal`` reuses the erfinv above);
+  * ``fold_in_static(key, names)`` is flax's ``_fold_in_static``: the first
+    32 bits of the SHA-1 of a module path's names and a ``make_rng``
+    counter, folded in. With these, ``models/descriptor.py`` draws the
+    parameters ``flax.linen.Module.init(PRNGKey(seed), ...)`` draws.
 """
 
 from __future__ import annotations
+
+import hashlib
+import math
 
 import numpy as np
 
@@ -101,3 +111,60 @@ def normal(key: tuple, shape) -> np.ndarray:
     hi = f(1.0)
     u = np.maximum(lo, floats * (hi - lo) + lo)
     return (f(np.sqrt(2.0)) * _erfinv_f32(u)).astype(f)
+
+
+def fold_in(key: tuple, data: int) -> tuple:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``."""
+    with np.errstate(over="ignore"):
+        y0, y1 = threefry2x32(
+            key, np.zeros(1, np.uint32), np.asarray([data], np.uint64).astype(np.uint32)
+        )
+    return (np.uint32(y0[0]), np.uint32(y1[0]))
+
+
+def fold_in_static(key: tuple, data) -> tuple:
+    """flax.core.scope._fold_in_static: fold the first 32 bits of the SHA-1
+    of ``data`` (strings as UTF-8, ints as their shortest big-endian bytes,
+    no separator: flax's ``flax_fix_rng_separator`` is off by default) into
+    ``key``. A parameter's key is this of the init key and (module path
+    names..., the scope's make_rng counter)."""
+    if not data:
+        return key
+    m = hashlib.sha1()
+    for x in data:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        elif isinstance(x, int):
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+        else:
+            raise ValueError(f"expected int or str, got {x!r}")
+    return fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
+
+
+def uniform(key: tuple, shape, minval=0.0, maxval=1.0) -> np.ndarray:
+    """float32 values equal to ``jax.random.uniform(key, shape,
+    minval=minval, maxval=maxval)``."""
+    f = np.float32
+    lo, hi = f(minval), f(maxval)
+    u_bits = (bits(key, shape) >> np.uint32(9)) | np.uint32(0x3F800000)
+    floats = u_bits.view(np.float32) - f(1.0)  # [0, 1)
+    # XLA contracts floats * (hi - lo) + lo into one FMA: the product and
+    # sum in f64, rounded to f32 once
+    scaled = (floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(f)
+    return np.maximum(lo, scaled)
+
+
+def truncated_normal(key: tuple, lower, upper, shape) -> np.ndarray:
+    """float32 normals truncated to (lower, upper), as
+    ``jax.random.truncated_normal(key, lower, upper, shape)``: erf of the
+    bounds, a uniform between them, sqrt(2) * erfinv, then the clip to the
+    open interval (to the last bits, as ``normal``)."""
+    f = np.float32
+    sqrt2 = f(np.sqrt(2.0))
+    lower, upper = f(lower), f(upper)
+    # the f32 erf of the bounds (XLA's polynomial and the correctly rounded
+    # value agree at the bounds in use, +-2 / sqrt 2)
+    a = f(math.erf(float(lower / sqrt2)))
+    b = f(math.erf(float(upper / sqrt2)))
+    out = (sqrt2 * _erfinv_f32(uniform(key, shape, a, b))).astype(f)
+    return np.clip(out, np.nextafter(lower, f(np.inf)), np.nextafter(upper, f(-np.inf))).astype(f)

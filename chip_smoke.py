@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phase photo # the 1,000-frame photo-world run
     python3 chip_smoke.py --phase euroc # the EuRoC entry point's phase alone
     python3 chip_smoke.py --phase live  # the live node alone, on a 60 s stream
+    python3 chip_smoke.py --phase netvlad  # the netvlad kind and the int8 DB alone
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -47,6 +48,19 @@ also reported):
             many would also pass the default accept gate. K1 must launch
             once per detect batch, K3 at least once, and at least one loop
             edge must be accepted;
+  int8      the int8 DB: max_and_argmax_int8 on CUDA tensors (one
+            torch._int_mm) against its plain exact product on the card at
+            Q=8 and Q=64 x N=29,184 x D=8,192 and 4,096, on k1_case's
+            planted DB quantized: gids equal and the planted ones, maxima
+            within 1e-6, its time (CUDA events; and its device time and
+            largest device operations under torch.profiler) beside K1's on
+            the bf16 DB and the int8 DB's one-read bound; the pipeline run's stream again with
+            loop.quantized=True (detection only): one int8 product per
+            detect batch, no K1, its candidates against the float run's
+            (every pair only one run emits, with both runs' max score of
+            its query); a quantized teach (lap 1) / save / load / repeat
+            (lap 2): the loaded DB equal to the saved one, candidates into
+            the taught map;
   pipeline_topk  the same pipeline with Method A at candidates_per_query=3
             and the camera mount (body_T_cam), fed a 2-lap survey with the
             default kidnap (no pose inside it), then verify_pending and
@@ -156,6 +170,23 @@ also reported):
             edge, every edge within 2 deg / 0.2 m, no K3 launch (the depth
             is measured), K2 once per detect batch, K1 never, a finite
             solve;
+  netvlad   the default descriptor kind, the in-framework net: (a) its
+            mobile (the default, 16 x 256 = 4,096-d), vgg16 and ghost (2
+            ghost clusters) variants, seeded, on a batch of 8 at 240x320 in
+            bf16 and f32 on the card against the same params on the CPU
+            (f32 within NETVLAD_F32_ATOL, bf16 to a cosine of
+            NETVLAD_BF16_COS), describe ms per batch (CUDA events) and its
+            device ms under torch.profiler; (b) CerebroPipeline
+            at the default CerebroConfig() (seeded net, 29,184-row DB,
+            default verification and cascade) on a 200-frame, 2-lap
+            synthworld survey: the weights are untrained, so candidates and
+            edges are printed without a target; (c) the trained synth net
+            (artifacts/descriptor_synth_npz, 4 x 64 = 256-d) on the photo
+            world, 400 frames over 1.4 laps with the kidnap, photo_config's
+            gates, Method A top-1 on a 29,184-row DB: candidate precision
+            and recall, edges and their worst error. Checks in (b) and (c):
+            K1 once per detect batch, no K2, K3 launched, every accepted
+            edge within 5 deg / 0.5 m of ground truth;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
             pipeline, euroc and live, K2 in pipeline_topk, pipeline_photo,
             euroc and depth, K3 in pipeline, pipeline_topk, pipeline_photo,
@@ -164,8 +195,10 @@ also reported):
             kernel / plain / library times and the bound; K2's also
             carries the top-3 search_topk call's times and its one-pass
             bound, and the gist run's call at D = 4,096 (gist_call_*);
-            the last entry, k1_d191, is K1 at D=191 with the euroc runs'
-            launches.
+            then k1_d191, K1 at D=191 with the euroc runs' launches, and
+            k1_d4096 and k1_d256, K1 on the netvlad runs' own DBs (rows as
+            queries, Q = the run's descriptor batch) with those runs'
+            launches (K3's count includes them).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises; the script exits non-zero without CUDA.
@@ -186,6 +219,11 @@ lines.
 then a kernels line of K1 and K3 from that run alone, and the last two
 lines.
 
+``--phase netvlad`` builds every kernel and runs the ``device``,
+``netvlad`` and ``int8`` phases (int8 with its own float detection run of
+the pipeline phase's stream), then a kernels line of k1_d4096 and k1_d256
+and the last two lines.
+
 ``--phase photo`` builds every kernel and runs the ``device`` phase, the
 ``k2`` checks with the photo shape at this run's 2,048-row DB, and
 ``pipeline_photo`` at 1,000 frames over 3.5 laps (bench_e2e.py's photo
@@ -198,8 +236,8 @@ so the numbers stay comparable across versions of the port.
 Times are CUDA-event times over repeated launches after a warm-up.
 ``bound_ms`` is the larger of (bytes each input read once and each output
 written once) / 3.35 TB/s and operations / the H100's peak rate for their
-type (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32), NVIDIA's published
-H100 SXM figures.
+type (989 TFLOP/s bf16 tensor cores, 1,979 TOP/s int8, 67 TFLOP/s f32),
+NVIDIA's published H100 SXM figures.
 """
 
 from __future__ import annotations
@@ -237,6 +275,14 @@ LIVE_S, LIVE_PHASE_S = 30.0, 60.0  # its length in the default run and under --p
 EDGE_DEG, EDGE_M = 2.0, 0.2
 WRONG_LOOP_DEG, WRONG_LOOP_M = 5.0, 0.5
 DEPTH_FRAMES, DEPTH_LAPS, DEPTH_DT_S = 200, 2.0, 0.15  # the depth-camera stream
+NETVLAD_FRAMES, NETVLAD_LAPS = 200, 2.0  # the default config's survey, shortened
+# the seeded net on the card against the CPU: the CPU parity tests' f32
+# tolerance (tests/test_torch_netvlad.py), and a per-descriptor cosine for
+# bf16 (cuDNN's bf16 convolutions round each layer's output as the CPU's f32
+# convolution of rounded operands does, but sum in another order)
+NETVLAD_F32_ATOL, NETVLAD_BF16_COS = 1e-4, 0.995
+SYNTH_NPZ = "artifacts/descriptor_synth_npz"  # the trained synth net, 4 x 64
+INT8_OPS_PER_S = 1979e12
 
 
 _last_emit = time.perf_counter()
@@ -546,29 +592,63 @@ def k3_measure(L, R, nd: int = 64, blk: int = 21) -> dict:
     return out
 
 
-def profiled_kernel_ms(fn, name: str, reps: int) -> float:
-    """Mean device time of the kernels whose name contains ``name`` over
-    ``reps`` calls of ``fn`` under torch.profiler: the kernel alone, with
-    no host gap between launches. The recorded cycle follows a warm-up
-    cycle of 5 x ``reps`` calls whose events are dropped: once a process
-    has run long traces (run_euroc's ``--trace``, the profile phase), a
-    session's first kernels after tracing starts can be missing from it,
-    and the warm-up cycle takes that loss."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+def profiled_cycle(fn, reps: int) -> list:
+    """(name, device us) of every kernel, copy and memset on the card in
+    ``reps`` calls of ``fn`` under torch.profiler. A session can miss the
+    first kernels it should record: late in a process, after long traces
+    (run_euroc's ``--trace``, the profile phase), more than ``reps`` + 1
+    launches of K3 at the start of a schedule's active cycle, and 1-3 of
+    190 per op name of a float32 describe. So the session records 5 x
+    ``reps`` calls, a marker kernel (``torch.cuda._sleep``) and the
+    ``reps`` calls whose device events, those that start after the marker
+    ends, are kept. The calls launch the same operations each time, so each
+    operation must appear a multiple of ``reps`` times; a cycle that lost
+    events raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for n in (5 * reps, reps):  # the warm-up cycle, then the recorded one
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    times = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5 * reps):
+            fn()
+        torch.cuda._sleep(1000)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.end for e in dev if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("the trace lost its marker kernel")
+    events = [(e.name, e.time_range.elapsed_us()) for e in dev if e.time_range.start >= max(marks)]
+    counts: dict = {}
+    for name, _ in events:
+        counts[name] = counts.get(name, 0) + 1
+    short = {k[:80]: n for k, n in counts.items() if n % reps}
+    if not events or short:
+        raise AssertionError(f"the trace of {reps} calls lost device events: {short or 'none recorded'}")
+    return events
+
+
+def profiled_kernel_ms(fn, name: str, reps: int) -> float:
+    """Mean device time of the kernels whose name contains ``name`` over
+    ``reps`` calls of ``fn`` (profiled_cycle): the kernel alone, with no
+    host gap between launches; one such kernel per call."""
+    times = [us for n, us in profiled_cycle(fn, reps) if name in n]
     if len(times) != reps:
         raise AssertionError(f"the trace holds {len(times)} {name} kernels for {reps} calls")
     return sum(times) / len(times) / 1e3
+
+
+def profiled_device_ms(fn, reps: int) -> dict:
+    """Device time per call of ``fn`` (profiled_cycle: every kernel, copy
+    and memset the call runs), and the call's three largest device
+    operations."""
+    per: dict = {}
+    for name, us in profiled_cycle(fn, reps):
+        per[name] = per.get(name, 0.0) + us / reps / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return {"device_ms": sum(per.values()), "top_device_ms": {k[:80]: v for k, v in top}}
 
 
 # ---------------------------------------------------------------------------
@@ -576,9 +656,8 @@ def profiled_kernel_ms(fn, name: str, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def phase_pipeline(device, world, n_frames: int, laps: float) -> dict:
+def phase_pipeline(device, world, n_frames: int, laps: float) -> tuple:
     from cerebro_tpu_torch import config as C
-    from cerebro_tpu_torch import synthworld as sw
     from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
 
     # Default settings, but for two verification changes. The tier-2
@@ -590,20 +669,13 @@ def phase_pipeline(device, world, n_frames: int, laps: float) -> dict:
         descriptor=C.DescriptorConfig(kind="ported"),
         verify=C.VerifyConfig(cascade=False, min_matches_accept=200),
     )
-    # no kidnap: one world, so every revisit is a loop within it
-    seq = sw.make_sequence(n_frames=n_frames, laps=laps, kidnap_at=1.0)
-    ren = sw.Renderer(world)
-    frames = [ren.stereo(float(x), float(y)) for x, y in seq.xy]
+    survey = synth_survey(world, n_frames, laps)
+    seq, ren, frames = survey
 
     pipe = CerebroPipeline(cfg, rig=ren.rig(), device=device)
     pipe.timer.sync = True  # attribute device time to each stage
     t0 = time.perf_counter()
-    for i, (left, right) in enumerate(frames):
-        pipe.ingest_frame(
-            float(seq.stamps[i]), left, n_tracked=int(seq.n_tracked[i]),
-            pose=seq.odom_poses[i], right_img=right,
-        )
-    pipe.flush_descriptors()
+    feed_frames(pipe, *survey)
     cands = list(pipe.candidates)
     t_ingest = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -650,7 +722,27 @@ def phase_pipeline(device, world, n_frames: int, laps: float) -> dict:
         "stage_mean_ms": {k: steady[k]["mean_ms"] for k in stages},
         "stage_first_ms": {k: steady[k].get("first_ms") for k in stages},
     }
-    return out, pipe, cands
+    return out, pipe, cands, survey
+
+
+def synth_survey(world, n_frames: int, laps: float):
+    """(sequence, renderer, stereo frames) of a synthworld survey with no
+    kidnap: one world, so every revisit is a loop within it."""
+    from cerebro_tpu_torch import synthworld as sw
+
+    seq = sw.make_sequence(n_frames=n_frames, laps=laps, kidnap_at=1.0)
+    ren = sw.Renderer(world)
+    return seq, ren, [ren.stereo(float(x), float(y)) for x, y in seq.xy]
+
+
+def feed_frames(pipe, seq, ren, frames):
+    """Every frame a stereo keyframe with its odometry pose, then a flush."""
+    for i, (left, right) in enumerate(frames):
+        pipe.ingest_frame(
+            float(seq.stamps[i]), left, n_tracked=int(seq.n_tracked[i]),
+            pose=seq.odom_poses[i], right_img=right,
+        )
+    pipe.flush_descriptors()
 
 
 def edge_errors(pipe, seq) -> list:
@@ -1898,6 +1990,307 @@ def check_depth(out: dict):
     check(out["optimize_finite"], "depth: the solve is not finite")
 
 
+# ---------------------------------------------------------------------------
+# The in-framework descriptor net (the default kind) and the int8 DB
+# ---------------------------------------------------------------------------
+
+
+def describe_check(device, variant: str, dtype: str, reps: int = 10) -> dict:
+    """The seeded DescriptorNet of ``variant`` at the default config's
+    240x320 on a batch of 8 on the card, against the same params on the
+    CPU: float32 within NETVLAD_F32_ATOL, bfloat16 to a per-descriptor
+    cosine of at least NETVLAD_BF16_COS; describe ms per batch. The card
+    runs with TF32 allowed for cuDNN and matmul (cuDNN's is PyTorch's
+    default), so a float32 net is held and timed as a user runs it: it
+    must keep itself off TF32."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model, describe_batch
+
+    kw = {"mobile": {}, "vgg16": {"backbone": "vgg16"}, "ghost": {"num_ghost": 2}}[variant]
+    cfg = C.DescriptorConfig(dtype=dtype, **kw)
+    net, params = create_descriptor_model(cfg, seed=0, device="cpu")
+    imgs = torch.from_numpy(
+        np.random.default_rng(7).integers(0, 256, (8, *cfg.image_hw, 1), dtype=np.uint8)
+    )
+    want = describe_batch(net, params, imgs)
+    net = net.to(device)
+    params = {k: v.to(device) for k, v in params.items()}
+    imgs_dev = imgs.to(device)
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = describe_batch(net, params, imgs_dev)
+        torch.cuda.synchronize()
+        got = got.cpu()
+        err = float((got - want).abs().max())
+        cos = float((got * want).sum(dim=1).min())
+        ok = err <= NETVLAD_F32_ATOL if dtype == "float32" else cos >= NETVLAD_BF16_COS
+        check(ok, f"netvlad {variant} {dtype}: card against CPU max err {err}, min cosine {cos}")
+        return {
+            "variant": variant, "dtype": dtype, "batch": 8, "image_hw": list(cfg.image_hw),
+            "tf32_allowed": True, "descriptor_dim": net.descriptor_dim,
+            "max_abs_err_vs_cpu": err, "min_cosine_vs_cpu": cos,
+            "describe_ms_per_batch": cuda_ms(lambda: describe_batch(net, params, imgs_dev), reps),
+            # 5 calls: the profiler records 31 and its host cost grows with them
+            **profiled_device_ms(lambda: describe_batch(net, params, imgs_dev), 5),
+        }
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def run_stream(pipe, seq, frames, verify: bool = True) -> dict:
+    """Feed a survey (bench_e2e.py's stream: no pose in the kidnap span),
+    then verify_pending: the counts and edge errors of a run."""
+    from cerebro_tpu_torch.ops.similarity import INT8_MM, K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+
+    K1.launches = K2.launches = K3.launches = INT8_MM.launches = 0
+    t0 = time.perf_counter()
+    feed_survey(pipe, seq, frames)
+    cands = list(pipe.candidates)
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    accepted = pipe.verify_pending() if verify else 0
+    torch.cuda.synchronize()
+    t_verify = time.perf_counter() - t0
+    errs = edge_errors(pipe, seq)
+    stats = pipe.timer.stats()
+    steady = pipe.timer.stats(skip_first=1)
+    return {
+        **candidate_quality(pipe, seq, cands),
+        "edges_accepted": accepted,
+        "edges_rejected": len(pipe.rejected_candidates),
+        "edge_precision": edge_precision(pipe, seq),
+        "edge_rot_err_deg_max": max((a for a, _ in errs), default=None),
+        "edge_trans_err_m_max": max((t for _, t in errs), default=None),
+        "descriptor_dim": pipe.db.dim, "db_rows": pipe.db.capacity,
+        "detect_batches": stats["detect"]["count"],
+        "k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches,
+        "int8_mm_launches": INT8_MM.launches,
+        "ingest_s": t_ingest, "verify_s": t_verify,
+        "stage_mean_ms": {k: steady[k]["mean_ms"] for k in ("describe", "detect") if k in steady},
+    }, cands
+
+
+def check_netvlad_run(r: dict, what: str):
+    check(r["k1_launches"] == r["detect_batches"],
+          f"{what}: K1 launched {r['k1_launches']} times for {r['detect_batches']} detect batches")
+    check(r["k2_launches"] == 0, f"{what}: Method A top-1 launched K2")
+    check(r["k3_launches"] > 0, f"{what}: verification never launched K3")
+    check(r["edges_accepted"] == 0 or (r["edge_rot_err_deg_max"] <= WRONG_LOOP_DEG
+                                       and r["edge_trans_err_m_max"] <= WRONG_LOOP_M),
+          f"{what}: an accepted loop edge is more than {WRONG_LOOP_DEG} deg / {WRONG_LOOP_M} m "
+          "from ground truth")
+
+
+def phase_netvlad(device, world) -> tuple:
+    """The default descriptor kind: the seeded net's three variants on the
+    card against the CPU; CerebroPipeline at the default CerebroConfig() on
+    a shortened synthworld survey; the trained synth net (256-d) on the
+    photo world. Returns (line, {D: (pipe, launches)})."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.models.descriptor import load_descriptor_params
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    out = {"phase": "netvlad", "describe": [
+        describe_check(device, v, d) for v in ("mobile", "vgg16", "ghost")
+        for d in ("bfloat16", "float32")
+    ]}
+
+    # (b) the default config, seeded weights (untrained: no target)
+    cfg = C.CerebroConfig()
+    seq, ren, frames = synth_survey(world, NETVLAD_FRAMES, NETVLAD_LAPS)
+    pipe = CerebroPipeline(cfg, rig=ren.rig(), device=device)
+    pipe.timer.sync = True
+    default, _ = run_stream(pipe, seq, frames)
+    default.update({"frames": NETVLAD_FRAMES, "laps": NETVLAD_LAPS,
+                    "settings": "CerebroConfig() (the seeded 4,096-d net, 29,184-row DB, "
+                                "batches of 8, default verification and cascade)",
+                    "escalated_to_tier2": pipe.escalated_to_tier2,
+                    "tier2_accepted": pipe.tier2_accepted})
+    out["default_config"] = default
+    check_netvlad_run(default, "netvlad default config")
+    runs = {pipe.db.dim: (pipe, default["k1_launches"])}
+
+    # (c) the trained synth net on the photo world at photo_config's gates, top-1
+    pworld = pw.PhotoWorld.create(seed=0)
+    pseq = pw.make_photo_sequence(n_frames=PHOTO_FRAMES, laps=PHOTO_LAPS)
+    pren = sw.Renderer(pworld)
+    pframes = [pren.stereo(float(x), float(y)) for x, y in pseq.xy]
+    base = photo_config(PHOTO_FRAMES)
+    with open(f"{SYNTH_NPZ}/meta.json") as fh:
+        mc = json.load(fh)["config"]
+    dcfg = C.DescriptorConfig(kind="netvlad", image_hw=tuple(mc["image_hw"]),
+                              trunk_dim=mc["trunk_dim"], num_clusters=mc["num_clusters"])
+    # Method A top-1 on the default 29,184-row DB (K1 at D = 256)
+    cfg = dataclasses.replace(base, descriptor=dcfg, loop=C.LoopConfig())
+    _, params = load_descriptor_params(SYNTH_NPZ, dcfg, device=device)
+    tpipe = CerebroPipeline(cfg, rig=pren.rig(), params=params, body_T_cam=sw.body_T_cam(),
+                            device=device)
+    tpipe.timer.sync = True
+    trained, _ = run_stream(tpipe, pseq, pframes)
+    trained.update({"frames": PHOTO_FRAMES, "laps": PHOTO_LAPS, "world": "photo",
+                    "settings": f"{SYNTH_NPZ} (4 x 64), photo_config's gates and batches of "
+                                "16, Method A top-1, 29,184-row DB, default cascade",
+                    "escalated_to_tier2": tpipe.escalated_to_tier2,
+                    "tier2_accepted": tpipe.tier2_accepted})
+    out["trained_synth_photo"] = trained
+    check_netvlad_run(trained, "netvlad trained synth")
+    runs[tpipe.db.dim] = (tpipe, trained["k1_launches"])
+    for r in (default, trained):
+        check(r["descriptor_dim"] in (4096, 256), f"netvlad: descriptor width {r['descriptor_dim']}")
+    return out, runs
+
+
+def netvlad_kernel_entries(runs: dict) -> list:
+    """K1 at the netvlad runs' widths (D = 4,096 and 256) and batch sizes
+    (each run's descriptor_batch, which picks the kernel's instantiation),
+    held on each run's own DB rows against the plain version, with the
+    run's launches and Q; then the runs' pipelines are closed."""
+    entries = []
+    for D, (pipe, launches) in sorted(runs.items(), reverse=True):
+        q, qp, lim = db_queries(pipe, pipe.cfg.runtime.descriptor_batch, seed=D)
+        t = k1_measure(qp, pipe.db.vectors, q, pipe.db.vectors[:, : pipe.db.dim], lim,
+                       pipe.db.global_ids)
+        entries.append({**kernel_entry(f"k1_d{D}", "cerebro_tpu_torch/csrc/score_topk.cu",
+                                       "cerebro_tpu/ops/similarity.py:98", launches,
+                                       t["max_abs_err"], t), "Q": t["Q"]})
+        pipe.close()
+    check(all(e["launches"] > 0 for e in entries), "a netvlad run never launched K1")
+    return entries
+
+
+def int8_measure(device, Q: int, N: int, D: int, seed: int) -> dict:
+    """The int8 search (one torch._int_mm) against the plain exact product
+    on the card, on k1_case's planted DB quantized: gids equal (and the
+    planted ones), maxima within 1e-6; its time beside K1's on the bf16 DB
+    and the int8 DB's one-read bound."""
+    from cerebro_tpu_torch.ops import similarity as sim
+
+    q, db, lim, gids, expect, _ = k1_case(Q, N, D, device, seed)
+    dbq, dbs = sim.quantize_rows(db.float())
+    km, kg = sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids)
+    pm, pg = sim.max_and_argmax_int8_plain(q, dbq, dbs, lim, gids)
+    torch.cuda.synchronize()
+    err = float((km - pm).abs().max())
+    check(torch.equal(kg, pg) and torch.equal(kg.cpu(), expect),
+          f"int8 at Q={Q} D={D}: gids {kg.tolist()} plain {pg.tolist()} expected {expect.tolist()}")
+    check(err <= 1e-6, f"int8 at Q={Q} D={D}: maxima differ by {err}")
+    nbytes = N * D + N * 4 + N * 4 + Q * D * 4 + Q * 4 + Q * 8
+    b_ms, b_by = bound(nbytes, 2.0 * Q * N * D, INT8_OPS_PER_S)
+    out = {
+        "Q": Q, "N": N, "D": D, "max_abs_err": err, "gids_exact": True,
+        "int8_ms": cuda_ms(lambda: sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids), 20),
+        "int8_plain_ms": cuda_ms(lambda: sim.max_and_argmax_int8_plain(q, dbq, dbs, lim, gids), 3),
+        "k1_ms": cuda_ms(lambda: sim.max_and_argmax_cuda(q, db, lim, gids), 20),
+        "bound_ms": b_ms, "bound_by": b_by,
+        **profiled_device_ms(lambda: sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids), 20),
+    }
+    del q, db, dbq
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_int8(device, world, float_run=None, N: int = 29184, dims=(8192, 4096)) -> dict:
+    """The int8 DB: the search against its plain version at the detector's
+    shapes; the pipeline phase's run with loop.quantized=True (detection)
+    against the float run's candidates; a quantized teach / save / load /
+    repeat round trip. ``float_run``: (survey, candidates, score history)
+    of the pipeline phase; None runs its detection here."""
+    import tempfile
+
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch.io import load_pipeline_state, save_pipeline_state
+    from cerebro_tpu_torch.ops.similarity import INT8_MM, K1
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    out = {"phase": "int8", "search": [
+        int8_measure(device, Q, N, D, seed) for D in dims
+        for Q, seed in ((8, 10), (64, 11))
+    ]}
+    fcfg = C.CerebroConfig(
+        descriptor=C.DescriptorConfig(kind="ported"),
+        verify=C.VerifyConfig(cascade=False, min_matches_accept=200),
+    )
+    qcfg = dataclasses.replace(fcfg, loop=dataclasses.replace(fcfg.loop, quantized=True))
+    if float_run is None:
+        survey = synth_survey(world, FRAMES, LAPS)
+        fpipe = CerebroPipeline(fcfg, rig=survey[1].rig(), device=device)
+        feed_frames(fpipe, *survey)
+        fcands, fhist = list(fpipe.candidates), fpipe.score_history
+        fpipe.close()
+    else:
+        survey, fcands, fhist = float_run
+    seq, ren, frames = survey
+
+    pipe = CerebroPipeline(qcfg, rig=ren.rig(), device=device)
+    pipe.timer.sync = True
+    K1.launches = INT8_MM.launches = 0
+    feed_frames(pipe, *survey)
+    qcands = list(pipe.candidates)
+    stats = pipe.timer.stats()
+    qhist = pipe.score_history
+    f = {(c.idx_curr, c.idx_prev): c.score for c in fcands}
+    q = {(c.idx_curr, c.idx_prev): c.score for c in qcands}
+    # a pair only one run emits, with both runs' max score of its query
+    # (every frame is described, so query = store index)
+    differing = [
+        {"curr": a, "prev": b, "emitted_by": "float" if (a, b) in f else "quantized",
+         "score_float": fhist[a], "score_quantized": qhist[a]}
+        for a, b in sorted(f.keys() ^ q.keys())
+    ]
+    out["quantized_run"] = {
+        "frames": len(frames), "db_rows": pipe.db.capacity, "descriptor_dim": pipe.db.dim,
+        "detect_batches": stats["detect"]["count"],
+        "int8_mm_launches": INT8_MM.launches, "k1_launches": K1.launches,
+        "candidates_float": len(f), "candidates_quantized": len(q),
+        "same_pairs": f.keys() == q.keys(), "differing_pairs": differing,
+        "score_max_abs_diff": max((abs(f[k] - q[k]) for k in f.keys() & q.keys()), default=None),
+        "detect_ms_mean": pipe.timer.stats(skip_first=1)["detect"]["mean_ms"],
+        **candidate_quality(pipe, seq, qcands),
+    }
+    check(INT8_MM.launches == stats["detect"]["count"] and K1.launches == 0,
+          f"int8 run: {INT8_MM.launches} int8 products, {K1.launches} K1 launches for "
+          f"{stats['detect']['count']} detect batches")
+    check(len(q) > 0, "the quantized run found no candidate")
+    pipe.close()
+
+    # teach lap 1, save, load, repeat lap 2 against the int8 map
+    half = len(frames) // 2
+    teach = CerebroPipeline(qcfg, rig=ren.rig(), device=device)
+    feed_frames(teach, seq, ren, frames[:half])
+    with tempfile.TemporaryDirectory() as tmp:
+        save_pipeline_state(teach, tmp)
+        with open(f"{tmp}/manifest.json") as fh:
+            manifest = json.load(fh)
+        repeat = load_pipeline_state(tmp, cfg=qcfg, rig=ren.rig(), device=device)
+    same_db = all(torch.equal(getattr(repeat.db, k), getattr(teach.db, k))
+                  for k in ("values", "scales", "global_ids"))
+    n_taught = repeat.store.size  # store index n_taught + j is frame half + j
+    described = len(repeat.db_gid_to_store)
+    INT8_MM.launches = 0
+    for i in range(half, len(frames)):
+        left, right = frames[i]
+        repeat.ingest_frame(1e4 + float(seq.stamps[i]), left, n_tracked=int(seq.n_tracked[i]),
+                            pose=None, right_img=right)
+    repeat.flush_descriptors()
+    into_map = [(c.idx_curr, c.idx_prev) for c in repeat.candidates if c.idx_prev < n_taught]
+    right_place = sum(np.linalg.norm(seq.xy[half + a - n_taught] - seq.xy[b]) < 1.5
+                      for a, b in into_map)
+    out["teach_repeat"] = {
+        "taught": n_taught, "described": described, "db_quantized": manifest["db_quantized"], "loaded_db_equal": same_db,
+        "repeat_candidates_into_map": len(into_map), "into_map_within_1p5m": int(right_place),
+        "repeat_int8_mm_launches": INT8_MM.launches,
+    }
+    check(manifest["db_quantized"] and same_db, "int8 teach/repeat: the loaded DB differs")
+    check(len(into_map) > 0, "int8 teach/repeat: no candidate into the taught map")
+    teach.close()
+    repeat.close()
+    return out
+
+
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
@@ -1915,11 +2308,13 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live"), default="all",
+    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live", "netvlad"),
+                    default="all",
                     help="all: every phase (default); k3: build and check K3 alone; "
                          "photo: pipeline_photo at 1,000 frames over 3.5 laps; "
                          "euroc: the EuRoC entry point's phase and its kernels line; "
-                         "live: the live node's phase alone on a 60 s stream, and its kernels line")
+                         "live: the live node's phase alone on a 60 s stream, and its kernels line; "
+                         "netvlad: the netvlad and int8 phases and K1 at their widths")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -1971,6 +2366,13 @@ def main(argv=None) -> int:
         return finish(smi)
 
     world = sw.CircuitWorld.create(seed=0)
+    if args.phase == "netvlad":
+        netvlad, runs = phase_netvlad(device, world)
+        emit(netvlad)
+        emit(phase_int8(device, world))
+        emit({"kernels": netvlad_kernel_entries(runs)})
+        return finish(smi)
+
     if args.phase == "k3":
         k3 = phase_k3(device, world)
         emit(k3)
@@ -1987,7 +2389,7 @@ def main(argv=None) -> int:
     # Main-path runs. Launches made above to compare and time the kernels
     # do not count: every count is set to 0 just before a run.
     K1.launches = K2.launches = K3.launches = 0
-    run, engine, cands = phase_pipeline(device, world, FRAMES, LAPS)
+    run, engine, cands, survey = phase_pipeline(device, world, FRAMES, LAPS)
     run["k1_launches"], run["k2_launches"], run["k3_launches"] = K1.launches, K2.launches, K3.launches
     emit(run)
     check(run["k1_launches"] == run["detect_batches"],
@@ -1999,6 +2401,7 @@ def main(argv=None) -> int:
     check(run["edge_rot_err_deg_max"] <= 5.0 and run["edge_trans_err_m_max"] <= 0.5,
           "an accepted loop edge is far from ground truth")
     check_unit_descriptors(run, "pipeline")
+    emit(phase_int8(device, world, float_run=(survey, cands, engine.score_history)))
 
     topk, topk_engine, _, seq = phase_pipeline_topk(device, world, TOPK_FRAMES, LAPS)
     emit(topk)
@@ -2041,6 +2444,8 @@ def main(argv=None) -> int:
     depth = phase_depth(device, DEPTH_FRAMES, DEPTH_LAPS)
     emit(depth)
     check_depth(depth)
+    netvlad, netvlad_runs = phase_netvlad(device, world)
+    emit(netvlad)
 
     main_k1 = k1["shapes"][0]
     main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["N"] == k2["N"] and x["k"] == k)
@@ -2054,7 +2459,9 @@ def main(argv=None) -> int:
     k2_entry.update({key: main_k2[key] for key in (
         "k", "call_ms", "call_plain_ms", "call_library_ms", "call_bound_ms")})
     k3_main = k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]
-                       + euroc_launches["K3"] + live_launches["K3"] + depth["k3_launches"])
+                       + euroc_launches["K3"] + live_launches["K3"] + depth["k3_launches"]
+                       + netvlad["default_config"]["k3_launches"]
+                       + netvlad["trained_synth_photo"]["k3_launches"])
     k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"],
                                  live_checks["K3"]["max_abs_err"])
     kernels = [
@@ -2067,6 +2474,7 @@ def main(argv=None) -> int:
         k2_euroc_entry(k2_entry, euroc_checks),
         k3_main,
         euroc_kernel_entries(euroc_checks, euroc_launches)[-1],  # K1 at D=191
+        *netvlad_kernel_entries(netvlad_runs),  # K1 at D=4,096 and D=256
     ]
     check(all(e["launches"] > 0 for e in kernels), "a kernel of the main path never launched")
     emit({"kernels": kernels})

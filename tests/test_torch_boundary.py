@@ -34,6 +34,10 @@ import cerebro_tpu_torch.geometry.cameras
 import cerebro_tpu_torch.io
 import cerebro_tpu_torch.io.euroc
 import cerebro_tpu_torch.io.rig_config
+import cerebro_tpu_torch.models
+import cerebro_tpu_torch.models.backbones
+import cerebro_tpu_torch.models.netvlad
+import cerebro_tpu_torch.models.descriptor
 import cerebro_tpu_torch.models.gist
 import cerebro_tpu_torch.models.wpca
 import cerebro_tpu_torch.utils.plot

@@ -12,8 +12,8 @@ JAX package's.
   gist --stride 1 --ate --odom-drift 0.05 --config <mini rig> --trace DIR``
   as a subprocess: exit 0, report.json with the JAX script's keys,
   n_frames == 8, ate_before > 0, ate_after set, a Chrome trace in DIR, the
-  trajectory files; ``--descriptor netvlad`` exits non-zero naming
-  ROADMAP Queue 1 item 7;
+  trajectory files; ``--descriptor netvlad`` through both packages'
+  run_euroc: the same report keys, frames, found loops and edges;
 - utils/plot.py's three renderers give the JAX package's images."""
 
 import dataclasses
@@ -229,10 +229,33 @@ def test_run_euroc_trace_writes_a_trace_file(gist_run):
 
 
 def test_run_euroc_netvlad_names_its_roadmap_item(tmp_path):
-    r, out = _run_euroc(tmp_path, "--descriptor", "netvlad")
-    assert r.returncode != 0
-    assert "NotImplementedError" in r.stderr and "item 7" in r.stderr
-    assert not os.path.exists(os.path.join(out, "report.json"))
+    """``--descriptor netvlad`` (the seeded in-framework net, once a
+    ROADMAP item, now ported) through both packages' run_euroc on the mini
+    folder: exit 0, the same report keys, frames, found loops and edges."""
+    r, out = _run_euroc(tmp_path / "port", "--descriptor", "netvlad")
+    assert r.returncode == 0, r.stderr[-3000:]
+    mav0 = make_mini_euroc(str(tmp_path / "jax"), n=8)
+    cfg = _write_mini_rig(str(tmp_path / "jax"))
+    jout = str(tmp_path / "jax" / "out")
+    jr = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "run_euroc.py"), mav0, "--out", jout,
+         "--cpu", "--descriptor", "netvlad", "--stride", "1", "--ate", "--odom-drift", "0.05",
+         "--config", cfg],
+        capture_output=True, text=True, timeout=600,
+    )
+    assert jr.returncode == 0, jr.stderr[-3000:]
+    docs = []
+    for d in (out, jout):
+        with open(os.path.join(d, "report.json")) as f:
+            docs.append(json.load(f))
+    doc, jdoc = docs
+    assert set(doc) == set(jdoc) and set(doc["report"]) == set(jdoc["report"])
+    assert doc["report"]["n_frames"] == jdoc["report"]["n_frames"] == 8
+    assert doc["status"]["described"] == jdoc["status"]["described"]
+    assert doc["found_loops"] == jdoc["found_loops"]
+    assert [(e["idx0"], e["idx1"]) for e in doc["loop_edges"]] == [
+        (e["idx0"], e["idx1"]) for e in jdoc["loop_edges"]
+    ]
 
 
 @pytest.mark.parametrize("name", ["plot_scores", "side_by_side_matches", "trajectory_topdown"])

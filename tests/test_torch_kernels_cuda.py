@@ -13,7 +13,9 @@ gids, every top-k list size, heights that are no multiple of the row band,
 narrow and wide images, nd at the kernel's limit, small and large blocks,
 the texture wrap at x = 0, more blocks than the card holds at once, float
 images, a DB of a descriptor width that is no multiple of 8, stored
-padded); chip_smoke.py covers the main path's. Three tests hold
+padded), the int8 DB's ``torch._int_mm`` search against the plain int8
+product, and the in-framework descriptor net on the card against the CPU;
+chip_smoke.py covers the main path's. Three tests hold
 properties
 of the plain PyTorch code on the card: the feature filters give the same
 matches whatever cuDNN's TF32 flag says, a pose-graph solve gives the same
@@ -448,3 +450,58 @@ def test_rectifier_maps_built_on_the_card_match_the_cpu(cuda):
     on_cpu = stereo.StereoRectifier(spec.cam0, spec.cam1, T, spec.image_hw, device="cpu")
     np.testing.assert_allclose(on_card.map0, on_cpu.map0, atol=1e-3, rtol=0)
     np.testing.assert_allclose(on_card.map1, on_cpu.map1, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("Q,N,D", [(1, 1024, 64), (8, 29184, 8192), (17, 2048, 4096), (64, 512, 200)])
+def test_int8_search_matches_plain(cuda, Q, N, D):
+    """max_and_argmax_int8 on CUDA tensors (one torch._int_mm, the queries
+    padded to 24+ rows; D = 200 stored padded to 208) against the plain
+    exact product (f64) on the same card: gids equal, maxima within 1e-6."""
+    from cerebro_tpu_torch.db import descriptors as ddb
+
+    rng = np.random.default_rng(Q + N)
+    vecs = torch.from_numpy(rng.normal(size=(N, D)).astype(np.float32)).to(cuda)
+    vecs = torch.nn.functional.normalize(vecs, dim=1)
+    db = ddb.create_quantized(N, D, device=cuda)
+    ddb.append_quantized(db, vecs, N)
+    rows = torch.from_numpy(rng.integers(0, N, Q)).to(cuda)
+    q = ddb.pad_queries(db, vecs[rows])
+    lim = torch.from_numpy(rng.integers(1, N + 1, Q).astype(np.int32)).to(cuda)
+    before = sim.INT8_MM.launches
+    km, kg = sim.max_and_argmax_int8(q, db.values, db.scales, lim, db.global_ids)
+    assert sim.INT8_MM.launches == before + 1
+    pm, pg = sim.max_and_argmax_int8_plain(q, db.values, db.scales, lim, db.global_ids)
+    assert torch.equal(kg, pg)
+    torch.testing.assert_close(km, pm, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("tf32", [False, True], ids=["tf32_off", "tf32_on"])
+@pytest.mark.parametrize("variant", [{}, {"backbone": "vgg16"}, {"num_ghost": 2}])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_netvlad_net_on_the_card_matches_the_cpu(cuda, variant, dtype, tf32):
+    """The seeded DescriptorNet at 240x320 on the card against the same
+    params on the CPU: float32 within 1e-4 on unit descriptors, bfloat16
+    (bf16 cuDNN convolutions) to a cosine of 0.995. Each with the caller's
+    TF32 flags for cuDNN and matmul off, and on (cuDNN's is on by PyTorch's
+    default): a float32 net turns TF32 off for its own products, and leaves
+    the caller's flags as they were."""
+    from cerebro_tpu_torch.config import DescriptorConfig
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model, describe_batch
+
+    cfg = DescriptorConfig(dtype=dtype, **variant)
+    net, params = create_descriptor_model(cfg, seed=0, device="cpu")
+    imgs = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (4, 240, 320, 1), dtype=np.uint8))
+    want = describe_batch(net, params, imgs)
+    net, params = net.to(cuda), {k: v.to(cuda) for k, v in params.items()}
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        got = describe_batch(net, params, imgs.to(cuda)).cpu()
+        flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    assert flags == (tf32, tf32)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    else:
+        assert float((got * want).sum(dim=1).min()) >= 0.995

@@ -6,6 +6,8 @@ frames 2..5 revisited).
   1, then the gather-bank tier 2 for match-count failures): the same
   candidates, the same pairs escalated, the same accepted edges, with edge
   poses within 0.5 deg and 2 cm, and the same rejection gates.
+- The seeded in-framework net (mobile and VGG16 trunks, f32) and the int8
+  DB: the same candidates, score history and edges.
 - The cascade on an approach-distance (1.54x) pair with the gather tier 1:
   escalated and accepted by tier 2 in both packages, rejected on matches
   without the scale banks.
@@ -151,21 +153,50 @@ def _base_cfg(tmp_path):
     "change",
     [
         {"descriptor": {"kind": "netvlad"}},
-        {"descriptor": {"kind": "netvlad", "backbone": "vgg16"}},
+        {"descriptor": {"kind": "netvlad", "backbone": "vgg16", "image_hw": (120, 160)}},
         {"loop": {"quantized": True}},
     ],
     ids=["netvlad", "netvlad_vgg16", "quantized"],
 )
-def test_settings_not_ported_raise(tmp_path, change):
-    cfg = _base_cfg(tmp_path)
+def test_settings_not_ported_raise(tmp_path, stream, change):
+    """Three settings that raised NotImplementedError until they were
+    ported, each now run by both packages on the same stream: the seeded
+    in-framework net (the default kind: mobile trunk, 16 x 256; and the
+    VGG16 trunk, described at 120x160), and the int8 DB under the ported
+    descriptor. The same candidates (scores within 1e-4), score history and
+    edges (poses within 0.5 deg and 2 cm). The nets are untrained, so most
+    candidates are wrong and fail verification: the same ones in both."""
+    jcfg = _jax_config(tmp_path / "j")
     for section, kw in change.items():
-        cfg = dataclasses.replace(cfg, **{section: dataclasses.replace(getattr(cfg, section), **kw)})
-    with pytest.raises(NotImplementedError):
-        CerebroPipeline(cfg, rig=TRIG, device="cpu")
+        jcfg = dataclasses.replace(jcfg, **{section: dataclasses.replace(getattr(jcfg, section), **kw)})
+    jp = JPipeline(jcfg, rig=make_rig())
+    _feed(jp, stream)
+    tp = CerebroPipeline(_port_config(jcfg), rig=TRIG, device="cpu")
+    _feed(tp, stream)
+    assert [(c.idx_curr, c.idx_prev) for c in tp.candidates] == [
+        (c.idx_curr, c.idx_prev) for c in jp.candidates
+    ]
+    assert any(c.idx_curr >= 14 for c in tp.candidates)  # the revisits
+    np.testing.assert_allclose(
+        [c.score for c in tp.candidates], [c.score for c in jp.candidates], atol=1e-4
+    )
+    np.testing.assert_allclose(tp.score_history, jp.score_history, atol=1e-4)
+    assert tp.detection_marks == jp.detection_marks
+    assert tp.verify_pending() == jp.verify_pending() >= 1
+    je = {(e.idx_curr, e.idx_prev): e for e in jp.loop_edges}
+    te = {(e.idx_curr, e.idx_prev): e for e in tp.loop_edges}
+    assert te.keys() == je.keys()
+    for k, e in te.items():
+        ang, tr = jse3.pose_delta_metrics(
+            jnp.asarray(je[k].T_prev_curr, jnp.float32), jnp.asarray(e.T_prev_curr, jnp.float32)
+        )
+        assert float(ang) < 0.5 and float(tr) < 0.02, (k, float(ang), float(tr))
+    tp.close()
 
 
 def test_runtime_paths_not_ported_raise(tmp_path):
-    """A mesh is still not ported; a depth image is (tests/test_torch_depth.py)."""
+    """A mesh is the one setting still not ported; a depth image is
+    (tests/test_torch_depth.py)."""
     cfg = _base_cfg(tmp_path)
     with pytest.raises(NotImplementedError):
         CerebroPipeline(cfg, rig=TRIG, mesh=object(), device="cpu")
@@ -188,6 +219,25 @@ def test_cuda_topk_above_kernel_size_raises_at_build(tmp_path, loop):
     with pytest.raises(ValueError, match="largest top-k size, 32"):
         CerebroPipeline(cfg, rig=TRIG, device="cuda")
     CerebroPipeline(cfg, rig=TRIG, device="cpu").close()
+
+
+def test_cuda_quantized_capacity_not_multiple_of_8_raises_at_build(tmp_path):
+    """The int8 product on CUDA takes the DB's rows in multiples of 8: a
+    quantized capacity that is not one fails when a CUDA pipeline is built,
+    before any device work, naming the setting; the CPU path runs it, and a
+    multiple of 8 passes the check."""
+    cfg = _base_cfg(tmp_path)
+    cfg = dataclasses.replace(
+        cfg, loop=dataclasses.replace(cfg.loop, quantized=True, db_capacity=1001)
+    )
+    with pytest.raises(ValueError, match="loop.db_capacity divisible by 8.*got 1001"):
+        CerebroPipeline(cfg, rig=TRIG, device="cuda")
+    CerebroPipeline(cfg, rig=TRIG, device="cpu").close()
+    # the check alone, on a CUDA device, at 1,008 rows
+    pipe = CerebroPipeline.__new__(CerebroPipeline)
+    pipe.device = torch.device("cuda")
+    pipe.cfg = dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, db_capacity=1008))
+    pipe._check_supported(None)
 
 
 def test_default_device_is_cuda(tmp_path, monkeypatch):

@@ -8,8 +8,12 @@ relocalize 3 revisiting frames against the loaded map:
   edges (index pairs) and rejection gates after verify_pending;
 - the loaded keyframe store and DB equal the saved ones;
 - the manifests have the same keys and values;
-- a quantized manifest raises NotImplementedError naming Queue 1 item 7,
-  and a checkpoint of another descriptor width raises ValueError."""
+- the int8 DB's teach and repeat: the same DB, manifest, candidates and
+  edges as JAX's;
+- the trained synth net's teach and repeat, its weights passed to the
+  load as ``params=``: the same candidates as JAX's;
+- a quantized checkpoint under a float config raises ValueError, and so
+  does the reverse and a checkpoint of another descriptor width."""
 
 import json
 import os
@@ -27,6 +31,8 @@ from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
 from test_pipeline import camera_pose, scene, small_config  # noqa: F401
 from test_torch_pipeline import TRIG, _port_config
 from test_verify import make_rig
+
+ARTIFACTS = os.path.join(os.path.dirname(__file__), "..", "artifacts")
 
 
 def _teach(pipe, scene):  # noqa: F811
@@ -111,15 +117,116 @@ def test_teach_and_repeat_matches_jax(taught, scene):  # noqa: F811
     tr.close()
 
 
+def _quantized(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, loop=dataclasses.replace(cfg.loop, quantized=True))
+
+
+def test_quantized_teach_and_repeat_matches_jax(tmp_path, scene):  # noqa: F811
+    """tests/test_checkpoint.py's quantized teach and repeat in both
+    packages: the taught int8 DB (values and ids identical, scales within
+    1e-5) JAX's,
+    the manifests equal, the loaded DB equal to the saved one, and the
+    relocalization's candidates and edges JAX's."""
+    jcfg = _quantized(small_config(tmp_path / "j"))
+    tcfg = _port_config(jcfg)
+    jp = JPipeline(jcfg, rig=make_rig())
+    _teach(jp, scene)
+    jsave(jp, str(tmp_path / "jax_q"))
+    tp = CerebroPipeline(tcfg, rig=TRIG, device="cpu")
+    _teach(tp, scene)
+    save_pipeline_state(tp, str(tmp_path / "port_q"))
+    np.testing.assert_array_equal(tp.db.global_ids.numpy(), np.asarray(jp.db.global_ids))
+    # the taught rows (the last batch's unmatchable tail holds gist of the
+    # zero padding images, which is noise in both packages). The two
+    # packages' gist descriptors differ in their last bits, so the scales
+    # agree to 1e-5 relative; on the same rows they are the same bits
+    # (tests/test_torch_int8.py)
+    n = 10
+    np.testing.assert_array_equal(tp.db.values[:n].numpy(), np.asarray(jp.db.values)[:n])
+    np.testing.assert_allclose(tp.db.scales[:n].numpy(), np.asarray(jp.db.scales)[:n], rtol=1e-5)
+    assert _manifest(tmp_path / "port_q") == _manifest(tmp_path / "jax_q")
+    assert _manifest(tmp_path / "port_q")["db_quantized"] is True
+
+    jr = jload(str(tmp_path / "jax_q"), cfg=jcfg, rig=make_rig(), stash_dir=str(tmp_path / "js"))
+    tr = load_pipeline_state(
+        str(tmp_path / "port_q"), cfg=tcfg, rig=TRIG, stash_dir=str(tmp_path / "ts"), device="cpu"
+    )
+    assert tr.db.count == 10 and tr.db.total == 10
+    for f in ("values", "scales", "global_ids"):
+        assert torch.equal(getattr(tr.db, f), getattr(tp.db, f)), f
+    _repeat(jr, scene)
+    _repeat(tr, scene)
+    tc = [(c.idx_curr, c.idx_prev) for c in tr.candidates]
+    assert tc == [(c.idx_curr, c.idx_prev) for c in jr.candidates]
+    assert any(p < 10 <= c for c, p in tc)
+    np.testing.assert_allclose(
+        [c.score for c in tr.candidates], [c.score for c in jr.candidates], atol=1e-4
+    )
+    assert tr.verify_pending() == jr.verify_pending()
+    assert [(e.idx_curr, e.idx_prev) for e in tr.loop_edges] == [
+        (e.idx_curr, e.idx_prev) for e in jr.loop_edges
+    ]
+    tp.close()
+    tr.close()
+
+
+def test_trained_netvlad_teach_and_repeat_matches_jax(tmp_path, scene):  # noqa: F811
+    """The trained synth net (flax checkpoint in JAX, its npz in the port)
+    through teach, save, and a load that takes the weights as ``params=``,
+    as the JAX package's load_pipeline_state does: the same candidates into
+    the taught map."""
+    import dataclasses
+
+    from cerebro_tpu.models.descriptor import load_descriptor_params as jload_params
+    from cerebro_tpu_torch.models.descriptor import load_descriptor_params
+
+    base = small_config(tmp_path / "j")
+    jcfg = dataclasses.replace(base, descriptor=dataclasses.replace(
+        base.descriptor, kind="netvlad", trunk_dim=64, num_clusters=4, dtype="float32"))
+    tcfg = _port_config(jcfg)
+    _, jparams = jload_params(os.path.join(ARTIFACTS, "descriptor_synth"), jcfg.descriptor)
+    _, tparams = load_descriptor_params(
+        os.path.join(ARTIFACTS, "descriptor_synth_npz"), tcfg.descriptor, device="cpu"
+    )
+    jp = JPipeline(jcfg, rig=make_rig(), params=jparams)
+    _teach(jp, scene)
+    jsave(jp, str(tmp_path / "jax_n"))
+    tp = CerebroPipeline(tcfg, rig=TRIG, params=tparams, device="cpu")
+    _teach(tp, scene)
+    save_pipeline_state(tp, str(tmp_path / "port_n"))
+    jr = jload(str(tmp_path / "jax_n"), cfg=jcfg, rig=make_rig(), params=jparams,
+               stash_dir=str(tmp_path / "js"))
+    tr = load_pipeline_state(str(tmp_path / "port_n"), cfg=tcfg, rig=TRIG, params=tparams,
+                             stash_dir=str(tmp_path / "ts"), device="cpu")
+    assert all(torch.equal(tr.params[k], tparams[k]) for k in tparams)
+    _repeat(jr, scene)
+    _repeat(tr, scene)
+    tc = [(c.idx_curr, c.idx_prev) for c in tr.candidates]
+    assert tc == [(c.idx_curr, c.idx_prev) for c in jr.candidates]
+    assert any(p < 10 <= c for c, p in tc)
+    tp.close()
+    tr.close()
+
+
 def test_quantized_checkpoint_raises(taught, tmp_path):
+    """A quantized checkpoint loaded under a float config raises, as the
+    JAX package's assert does."""
     tmp, _, tcfg, _, _ = taught
     m = _manifest(tmp / "port_ckpt")
     m["db_quantized"] = True
     d = tmp_path / "q"
     d.mkdir()
     (d / "manifest.json").write_text(json.dumps(m))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="checkpoint is quantized"):
         load_pipeline_state(str(d), cfg=tcfg, rig=TRIG, device="cpu")
+
+
+def test_float_checkpoint_raises_under_quantized_config(taught):
+    tmp, _, tcfg, _, _ = taught
+    with pytest.raises(ValueError, match="checkpoint is not quantized"):
+        load_pipeline_state(str(tmp / "port_ckpt"), cfg=_quantized(tcfg), rig=TRIG, device="cpu")
 
 
 def test_descriptor_width_mismatch_raises(taught, tmp_path):
