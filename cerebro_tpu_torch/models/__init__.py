@@ -11,6 +11,16 @@ from cerebro_tpu_torch.models.descriptor import (  # noqa: F401
     convert_params,
     create_descriptor_model,
     describe_batch,
+    export_params,
     load_descriptor_params,
+)
+from cerebro_tpu_torch.models.keypoints import (  # noqa: F401
+    KeypointNet,
+    create_keypoint_model,
+    detect_keypoints,
+    heatmap_from_logits,
+    make_optimizer_state,
+    match_image_pair_learned,
+    synthetic_corner_batch,
 )
 from cerebro_tpu_torch.models.netvlad import GhostVLAD, NetVLAD  # noqa: F401

@@ -33,12 +33,13 @@ Parameter layouts are PyTorch's: a kernel is (O, I / groups, kh, kw);
 
 from __future__ import annotations
 
-import contextlib
 from typing import Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from cerebro_tpu_torch.utils.precision import exact_fp32
 
 
 def same_pads(size: int, k: int, stride: int) -> tuple:
@@ -50,22 +51,6 @@ def same_pads(size: int, k: int, stride: int) -> tuple:
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(dtype).float()
-
-
-@contextlib.contextmanager
-def exact_fp32(x: torch.Tensor, dtype):
-    """Turns TF32 off for cuDNN and matmul while a float32 computation on
-    CUDA runs, and restores the caller's flags after it (they are process
-    wide); a no-op for other dtypes and devices."""
-    if not (x.is_cuda and dtype == torch.float32):
-        yield
-        return
-    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 class Conv(nn.Module):

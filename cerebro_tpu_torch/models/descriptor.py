@@ -16,10 +16,16 @@ Parameters come three ways, all in the JAX package's flax layout first:
     the JAX package's does;
   * ``load_descriptor_params(directory, cfg)`` reads a ``params.npz`` of
     flax paths (``artifacts/descriptor_synth_npz``, written from the JAX
-    package's orbax checkpoint by scripts/export_descriptor_synth.py);
+    package's orbax checkpoint by scripts/export_descriptor_synth.py, or
+    by ``python -m cerebro_tpu_torch.pretrain_synthetic``);
   * ``convert_params`` takes flax params as numpy arrays (nested, as
     ``net.init`` returns them, or flat ``"MobileTrunk_0/Conv_0/kernel"``
     keys) and returns the PyTorch state: HWIO kernels go to OIHW.
+    ``export_params`` goes back, to the npz's arrays.
+
+The draw and both conversions read one table of (flax path, PyTorch
+name, flax shape, initializer), ``flax_layout(cfg)``; the keypoint net
+(``models/keypoints.py``) has its own table and shares the rest.
 """
 
 from __future__ import annotations
@@ -145,15 +151,23 @@ def _lecun_normal(key, shape) -> np.ndarray:
 
 def init_flax_params(cfg, seed: int = 0) -> Dict[str, np.ndarray]:
     """The parameters ``DescriptorNet.init(jax.random.PRNGKey(seed), x)``
-    returns in the JAX package, as flat ``"a/b/name"`` numpy arrays: each
-    parameter's key is flax's static fold of (its module path, the scope's
-    make_rng counter) into the init key. In a scope the counter counts the
-    parameters in creation order: a kernel is 1 and its bias 2, GroupNorm's
-    scale 1 and bias 2, NetVLAD's assign_w 1, assign_b 2, centers 3."""
+    returns in the JAX package, as flat ``"a/b/name"`` numpy arrays
+    (``init_from_layout``)."""
+    return init_from_layout(flax_layout(cfg), seed)
+
+
+def init_from_layout(layout, seed: int = 0) -> Dict[str, np.ndarray]:
+    """What flax's ``Module.init(jax.random.PRNGKey(seed), x)`` draws for
+    the parameters of ``layout`` (a ``flax_layout``-style table), as flat
+    ``"a/b/name"`` numpy arrays: each parameter's key is flax's static fold
+    of (its module path, the scope's make_rng counter) into the init key.
+    In a scope the counter counts the parameters in creation order: a
+    kernel is 1 and its bias 2, GroupNorm's scale 1 and bias 2, NetVLAD's
+    assign_w 1, assign_b 2, centers 3."""
     root = jaxrand.prng_key(seed)
     counters: Dict[tuple, int] = {}
     out = {}
-    for path, _, shape, init in flax_layout(cfg):
+    for path, _, shape, init in layout:
         scope = path[:-1]
         counters[scope] = counters.get(scope, 0) + 1
         if init == "lecun":
@@ -178,12 +192,18 @@ def convert_params(flax_params, cfg, device="cuda") -> Dict[str, torch.Tensor]:
     """flax params of ``cfg``'s net (numpy arrays; nested as ``net.init``
     returns them, with or without the ``"params"`` level, or flat
     ``"a/b/name"`` keys) -> the PyTorch state of ``DescriptorNet`` on
-    ``device``. Kernels go HWIO -> OIHW (a depthwise (3, 3, 1, C) to
-    (C, 1, 3, 3)); every other array keeps its shape. Raises unless the
-    names and shapes are exactly those of ``cfg``'s net."""
+    ``device`` (``state_from_layout``)."""
+    return state_from_layout(flax_params, flax_layout(cfg), device)
+
+
+def state_from_layout(flax_params, layout, device="cuda") -> Dict[str, torch.Tensor]:
+    """flax params (nested or flat, as ``convert_params`` takes them) -> the
+    PyTorch state named by ``layout`` on ``device``. Kernels go HWIO ->
+    OIHW (a depthwise (3, 3, 1, C) to (C, 1, 3, 3)); every other array
+    keeps its shape. Raises unless the names and shapes are exactly those
+    of ``layout``."""
     flat = _flatten(flax_params)
     flat = {k.removeprefix("params/"): v for k, v in flat.items()}
-    layout = flax_layout(cfg)
     want = {"/".join(p) for p, *_ in layout}
     if set(flat) != want:
         raise ValueError(
@@ -199,6 +219,20 @@ def convert_params(flax_params, cfg, device="cuda") -> Dict[str, torch.Tensor]:
             a = a.transpose(3, 2, 0, 1)
         state[name] = torch.tensor(np.ascontiguousarray(a, np.float32), device=device)
     return state
+
+
+def export_params(state, cfg) -> Dict[str, np.ndarray]:
+    """The inverse of ``convert_params``: ``cfg``'s net's PyTorch state ->
+    flat ``"a/b/name"`` float32 numpy arrays under flax's paths (OIHW
+    kernels back to HWIO), as ``load_descriptor_params`` reads them from a
+    ``params.npz``."""
+    out = {}
+    for path, name, _, _ in flax_layout(cfg):
+        a = state[name].detach().float().cpu().numpy()
+        if path[-1] == "kernel":
+            a = a.transpose(2, 3, 1, 0)
+        out["/".join(path)] = np.ascontiguousarray(a)
+    return out
 
 
 def create_descriptor_model(cfg, seed: int = 0, device="cuda") -> Tuple[DescriptorNet, dict]:

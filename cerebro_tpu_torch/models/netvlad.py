@@ -12,7 +12,7 @@ The two products take ``dtype``-rounded operands and give an f32 result
 (the JAX package's ``preferred_element_type=f32``): they multiply the
 rounded values in f32, since a bf16 ``torch.matmul`` would round its
 result to bf16. The softmax, the sums and the norms are f32. A float32
-net's products on CUDA run with TF32 off (``backbones.exact_fp32``).
+net's products on CUDA run with TF32 off (``utils.precision.exact_fp32``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from cerebro_tpu_torch.models.backbones import exact_fp32
+from cerebro_tpu_torch.utils.precision import exact_fp32
 
 
 def _round(x: torch.Tensor, dtype) -> torch.Tensor:

@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phase euroc # the EuRoC entry point's phase alone
     python3 chip_smoke.py --phase live  # the live node alone, on a 60 s stream
     python3 chip_smoke.py --phase netvlad  # the netvlad kind and the int8 DB alone
+    python3 chip_smoke.py --phase train    # the training path alone
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -187,6 +188,41 @@ also reported):
             and recall, edges and their worst error. Checks in (b) and (c):
             K1 once per detect batch, no K2, K3 launched, every accepted
             edge within 5 deg / 0.5 m of ground truth;
+  train     the training path: (a) python -m
+            cerebro_tpu_torch.pretrain_synthetic's main at the shipped
+            artifact's settings (150 steps, 32 places x 4 views, batches of
+            8 places, bf16, Adam at 5e-4): ms per step (CUDA events, the
+            first step apart), the loss at the first and last step, the
+            same-place and cross-place similarity and their margin beside
+            the JAX-trained artifact's (its meta.json) and the untrained
+            net's; the loss must fall and the margin exceed 0.2 and the
+            untrained margin by 0.1; one step at the script's batch of 32
+            profiled (device ms, idle share, the FLOP bound: 3x the
+            forward's FLOPs at the bf16 peak); then the written npz through
+            load_descriptor_params in CerebroPipeline(params=...) on the
+            netvlad (c) stream shortened to 200 frames: candidates, edges,
+            every edge within 5 deg / 0.5 m, K1 once per detect batch, K3
+            launched, then K1 on its DB and K3 on up to 8 of its verified
+            pairs against their plain versions; (b) one train step of
+            CerebroConfig().descriptor (the 4,096-d net) at a batch of 32,
+            profiled alike; (c) the keypoint model at its defaults (desc
+            128, width 32, bf16): 300 train steps on synthetic_corner_batch
+            of 16, ms per step, loss first and last (last < 0.6 x first),
+            a step profiled; tests/test_keypoints.py's held-out corner
+            hits (>= 0.6); match_image_pair_learned at max_kp 512 on a
+            240x320 photo-world frame and its (8, 8) roll (>= 0.7 of the
+            valid matches within 1 px of the shift), detect_keypoints ms
+            per frame; (d) float32 gradients of both train losses on the
+            card, with the caller's TF32 flags on, against the CPU: the
+            loss within 1e-4 relative, each gradient tensor within 1e-4 of
+            its norm (plus 1e-6 of the whole gradient's) or within twice
+            the change a 1e-7 relative move of the input makes on the CPU
+            (the gradient's own rounding sensitivity) where that is larger,
+            and within 1e-5 of the card's own with the caller's TF32 off:
+            the descriptor at the CPU parity tests' 64x64, trunk 16 and at
+            the artifact's 240x320, trunk 64 (whose untrained shallow
+            layers move by ~2e-3 under such a move), and the keypoint model
+            at its defaults;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
             pipeline, euroc and live, K2 in pipeline_topk, pipeline_photo,
             euroc and depth, K3 in pipeline, pipeline_topk, pipeline_photo,
@@ -198,7 +234,9 @@ also reported):
             then k1_d191, K1 at D=191 with the euroc runs' launches, and
             k1_d4096 and k1_d256, K1 on the netvlad runs' own DBs (rows as
             queries, Q = the run's descriptor batch) with those runs'
-            launches (K3's count includes them).
+            launches (K3's count includes them); k1_train_d256, K1 on the
+            train phase's run of the weights it trained, with that run's
+            launches (K3's count includes that run's too).
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises; the script exits non-zero without CUDA.
@@ -223,6 +261,10 @@ lines.
 ``netvlad`` and ``int8`` phases (int8 with its own float detection run of
 the pipeline phase's stream), then a kernels line of k1_d4096 and k1_d256
 and the last two lines.
+
+``--phase train`` builds every kernel and runs the ``device`` and ``train``
+phases, then a kernels line of k1_train_d256 and K3 from the train run and
+the last two lines.
 
 ``--phase photo`` builds every kernel and runs the ``device`` phase, the
 ``k2`` checks with the photo shape at this run's 2,048-row DB, and
@@ -283,6 +325,30 @@ NETVLAD_FRAMES, NETVLAD_LAPS = 200, 2.0  # the default config's survey, shortene
 NETVLAD_F32_ATOL, NETVLAD_BF16_COS = 1e-4, 0.995
 SYNTH_NPZ = "artifacts/descriptor_synth_npz"  # the trained synth net, 4 x 64
 INT8_OPS_PER_S = 1979e12
+# the train phase: pretrain_synthetic at the shipped artifact's settings
+# (artifacts/descriptor_synth_npz/meta.json: 150 steps, 32 places; the JAX
+# script's 4 views and batches of 8 places), its net's run shortened to 200
+# photo frames; the keypoint model trained as tests/test_keypoints.py does,
+# longer, and held to that test's checks
+PRETRAIN_ARGS = ["--steps", "150", "--places", "32", "--views", "4", "--batch-places", "8"]
+TRAIN_FRAMES, TRAIN_LAPS = 200, 1.4
+TRAIN_MARGIN_MIN, TRAIN_MARGIN_GAIN = 0.2, 0.1  # separation margin, and over the untrained net's
+KP_STEPS, KP_BATCH = 300, 16
+KP_LOSS_RATIO, KP_HITS_MIN, KP_SHIFT_INLIERS = 0.6, 0.6, 0.7
+TRAIN_GRAD_TOL = 1e-4  # f32 card against CPU: loss and each gradient, relative
+TRAIN_TF32_TOL = 1e-5  # the card with the caller's TF32 on against off
+SENS_SEEDS = (0, 1, 2)  # 1e-7 input moves whose change of the CPU's gradient is recorded
+# (d)'s cases (train_grad_case). The first two are the CPU parity tests'
+# batches, where a 1e-7 relative move of the input moves the CPU's own
+# gradient by 1e-6 to 4e-6: held within TRAIN_GRAD_TOL. At the artifact's
+# 240x320 the gradient moves by 3e-4 under such a move even for the
+# trained net on views of its training world (by 1e-3 to 2e-3 for the
+# untrained net on noise), so two correct float32 computations differ by
+# as much: there each tensor is held within twice that sensitivity, at
+# least TRAIN_GRAD_TOL and at most TRAIN_GRAD_CAP.
+TRAIN_GRAD_CASES = ("descriptor_64x64_trunk16_batch8_seeded", "keypoints_default_batch2_seeded",
+                    "descriptor_240x320_trunk64_batch8_synth_npz_places")
+TRAIN_GRAD_CAP = 1e-3
 
 
 _last_emit = time.perf_counter()
@@ -2083,15 +2149,48 @@ def check_netvlad_run(r: dict, what: str):
           "from ground truth")
 
 
+def trained_photo_run(device, npz_dir: str, n_frames: int, laps: float) -> tuple:
+    """A trained descriptor (``npz_dir``: params.npz and meta.json, as
+    load_descriptor_params reads them) in CerebroPipeline(params=...) on the
+    photo world, ``n_frames`` over ``laps`` with the kidnap, photo_config's
+    gates and batches, Method A top-1 on the default 29,184-row DB (K1),
+    the default cascade: (run_stream's line, the pipeline)."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.models.descriptor import load_descriptor_params
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    pworld = pw.PhotoWorld.create(seed=0)
+    pseq = pw.make_photo_sequence(n_frames=n_frames, laps=laps)
+    pren = sw.Renderer(pworld)
+    pframes = [pren.stereo(float(x), float(y)) for x, y in pseq.xy]
+    base = photo_config(n_frames)
+    with open(f"{npz_dir}/meta.json") as fh:
+        mc = json.load(fh)["config"]
+    dcfg = C.DescriptorConfig(kind="netvlad", image_hw=tuple(mc["image_hw"]),
+                              trunk_dim=mc["trunk_dim"], num_clusters=mc["num_clusters"])
+    cfg = dataclasses.replace(base, descriptor=dcfg, loop=C.LoopConfig())
+    _, params = load_descriptor_params(npz_dir, dcfg, device=device)
+    tpipe = CerebroPipeline(cfg, rig=pren.rig(), params=params, body_T_cam=sw.body_T_cam(),
+                            device=device)
+    tpipe.timer.sync = True
+    trained, _ = run_stream(tpipe, pseq, pframes)
+    trained.update({"frames": n_frames, "laps": laps, "world": "photo",
+                    "settings": f"{npz_dir} ({mc['num_clusters']} x {mc['trunk_dim']}), "
+                                "photo_config's gates and batches of 16, Method A top-1, "
+                                "29,184-row DB, default cascade",
+                    "escalated_to_tier2": tpipe.escalated_to_tier2,
+                    "tier2_accepted": tpipe.tier2_accepted})
+    return trained, tpipe
+
+
 def phase_netvlad(device, world) -> tuple:
     """The default descriptor kind: the seeded net's three variants on the
     card against the CPU; CerebroPipeline at the default CerebroConfig() on
     a shortened synthworld survey; the trained synth net (256-d) on the
     photo world. Returns (line, {D: (pipe, launches)})."""
     from cerebro_tpu_torch import config as C
-    from cerebro_tpu_torch import photoworld as pw
-    from cerebro_tpu_torch import synthworld as sw
-    from cerebro_tpu_torch.models.descriptor import load_descriptor_params
     from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
 
     out = {"phase": "netvlad", "describe": [
@@ -2115,27 +2214,7 @@ def phase_netvlad(device, world) -> tuple:
     runs = {pipe.db.dim: (pipe, default["k1_launches"])}
 
     # (c) the trained synth net on the photo world at photo_config's gates, top-1
-    pworld = pw.PhotoWorld.create(seed=0)
-    pseq = pw.make_photo_sequence(n_frames=PHOTO_FRAMES, laps=PHOTO_LAPS)
-    pren = sw.Renderer(pworld)
-    pframes = [pren.stereo(float(x), float(y)) for x, y in pseq.xy]
-    base = photo_config(PHOTO_FRAMES)
-    with open(f"{SYNTH_NPZ}/meta.json") as fh:
-        mc = json.load(fh)["config"]
-    dcfg = C.DescriptorConfig(kind="netvlad", image_hw=tuple(mc["image_hw"]),
-                              trunk_dim=mc["trunk_dim"], num_clusters=mc["num_clusters"])
-    # Method A top-1 on the default 29,184-row DB (K1 at D = 256)
-    cfg = dataclasses.replace(base, descriptor=dcfg, loop=C.LoopConfig())
-    _, params = load_descriptor_params(SYNTH_NPZ, dcfg, device=device)
-    tpipe = CerebroPipeline(cfg, rig=pren.rig(), params=params, body_T_cam=sw.body_T_cam(),
-                            device=device)
-    tpipe.timer.sync = True
-    trained, _ = run_stream(tpipe, pseq, pframes)
-    trained.update({"frames": PHOTO_FRAMES, "laps": PHOTO_LAPS, "world": "photo",
-                    "settings": f"{SYNTH_NPZ} (4 x 64), photo_config's gates and batches of "
-                                "16, Method A top-1, 29,184-row DB, default cascade",
-                    "escalated_to_tier2": tpipe.escalated_to_tier2,
-                    "tier2_accepted": tpipe.tier2_accepted})
+    trained, tpipe = trained_photo_run(device, SYNTH_NPZ, PHOTO_FRAMES, PHOTO_LAPS)
     out["trained_synth_photo"] = trained
     check_netvlad_run(trained, "netvlad trained synth")
     runs[tpipe.db.dim] = (tpipe, trained["k1_launches"])
@@ -2291,6 +2370,365 @@ def phase_int8(device, world, float_run=None, N: int = 29184, dims=(8192, 4096))
     return out
 
 
+# ---------------------------------------------------------------------------
+# The training path
+# ---------------------------------------------------------------------------
+
+
+def place_batch(hw, places: int, views: int, seed: int) -> tuple:
+    """(places * views, H, W, 1) uint8 images, each place's views near
+    copies of one noise image, and their int32 place labels."""
+    rng = np.random.default_rng(seed)
+    imgs, labels = [], []
+    for p in range(places):
+        base = rng.integers(0, 256, (*hw, 1)).astype(np.int32)
+        for _ in range(views):
+            imgs.append(np.clip(base + rng.integers(-12, 13, base.shape), 0, 255).astype(np.uint8))
+            labels.append(p)
+    return np.stack(imgs), np.asarray(labels, np.int32)
+
+
+def forward_flops(net, x) -> float:
+    """Multiply-adds x 2 of one forward of ``net`` on ``x``: every
+    convolution (``backbones.Conv``, counted from its output and kernel) and
+    NetVLAD's two products (assignment and aggregation)."""
+    from cerebro_tpu_torch.models.backbones import Conv
+    from cerebro_tpu_torch.models.netvlad import NetVLAD
+
+    total = [0.0]
+
+    def conv_hook(mod, inp, out):
+        total[0] += 2.0 * out.numel() * mod.weight.shape[1] * mod.k * mod.k
+
+    def vlad_hook(mod, inp, out):
+        B, C, H, W = inp[0].shape
+        K = mod.num_clusters
+        total[0] += 2.0 * B * H * W * C * (K + mod.num_ghost) + 2.0 * B * K * H * W * C
+
+    hooks = [m.register_forward_hook(conv_hook) for m in net.modules() if isinstance(m, Conv)]
+    hooks += [m.register_forward_hook(vlad_hook) for m in net.modules() if isinstance(m, NetVLAD)]
+    try:
+        with torch.no_grad():
+            net(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def step_profile(step, fwd_flops: float, reps: int = 2) -> dict:
+    """One train step, repeated: ms per step by CUDA events over back-to-back
+    steps, its device ms under torch.profiler (profiled_device_ms), the
+    device's idle share, and the step's bound: forward and backward, 3x the
+    forward's FLOPs, at the H100's dense bf16 peak."""
+    ms = cuda_ms(step, 5)
+    prof = profiled_device_ms(step, reps)
+    return {
+        "step_ms": ms, **prof, "device_idle_share": 1.0 - prof["device_ms"] / ms,
+        "forward_gflop": fwd_flops / 1e9, "step_gflop": 3 * fwd_flops / 1e9,
+        "bound_ms": 3 * fwd_flops / BF16_OPS_PER_S * 1e3, "bound_by": "operations (bf16)",
+    }
+
+
+def grad_rel_err(got: dict, want: dict) -> float:
+    """The largest, over gradient tensors, of |got - want| / (|want| +
+    0.01 |whole gradient|), so that a bound of 1e-4 on it holds each tensor
+    within 1e-4 of its norm plus 1e-6 of the whole gradient's: a tensor
+    whose gradient is rounding noise (the stem GroupNorm's scale, whose
+    effect the next per-channel GroupNorm normalizes away) is held at the
+    whole gradient's scale."""
+    floor = 0.01 * float(torch.cat([g.reshape(-1) for g in want.values()]).norm())
+    return max(float((got[k].cpu() - g).norm()) / (float(g.norm()) + floor) for k, g in want.items())
+
+
+def grads_card_vs_cpu(device, net, params, loss_fn, x, y, conditioned: bool = True) -> dict:
+    """``value_and_grad`` of ``loss_fn(net, params, x, y)`` (a float32 net):
+    on the CPU; on the CPU with ``x`` moved by 1e-7 relative, once per
+    SENS_SEEDS draw (the gradient's own sensitivity to rounding); on the
+    card with the caller's TF32 flags on for cuDNN and matmul, and off.
+    Returns the loss's relative error on the card, grad_rel_err of the card
+    against the CPU, the sensitivity (the largest over the draws, and
+    each), the card with the caller's TF32 on against off (the step holds
+    TF32 off over the forward and the backward, so only the card's
+    nondeterministic sums differ), and the gradient's bound,
+    ``grad_limit``: 1e-4 where the gradient is ``conditioned``, else twice
+    the sensitivity, at least 1e-4 and at most 1e-3. The flags must come
+    back as they were."""
+    from cerebro_tpu_torch.train.optim import value_and_grad
+
+    def grads(n, p, x_, y_):
+        loss, g = value_and_grad(lambda q: loss_fn(n, q, x_, y_), p)
+        return float(loss[0] if isinstance(loss, tuple) else loss), g
+
+    loss_c, grads_c = grads(net, params, x, y)
+    sens = []
+    for seed in SENS_SEEDS:
+        gen = torch.Generator().manual_seed(seed)
+        xp = x.float() * (1 + 1e-7 * torch.randn(x.shape, generator=gen))
+        sens.append(grad_rel_err(grads(net, params, xp, y)[1], grads_c))
+    net_g = net.to(device)
+    params_g = {k: v.to(device) for k, v in params.items()}
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    card = {}
+    try:
+        for tf32 in (True, False):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            card[tf32] = grads(net_g, params_g, x.to(device), y.to(device))
+            check((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+                  == (tf32, tf32), "a train step left the caller's TF32 flags changed")
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = prev
+    net.to("cpu")
+    loss_g, grads_g = card[True]
+    return {"loss_rel_err": abs(loss_g - loss_c) / abs(loss_c),
+            "grad_rel_err_max": grad_rel_err(grads_g, grads_c),
+            "cpu_sensitivity_1e-7": max(sens), "cpu_sensitivity_1e-7_per_seed": sens,
+            "tf32_on_vs_off": grad_rel_err(grads_g, {k: v.cpu() for k, v in card[False][1].items()}),
+            "grad_limit": TRAIN_GRAD_TOL if conditioned
+            else min(TRAIN_GRAD_CAP, max(TRAIN_GRAD_TOL, 2 * max(sens)))}
+
+
+def train_grad_case(name: str) -> tuple:
+    """One of (d)'s TRAIN_GRAD_CASES: (float32 net on the CPU, its params,
+    loss_fn(net, params, x, y), x, y, whether the gradient is
+    conditioned)."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch import pretrain_synthetic as ps
+    from cerebro_tpu_torch.models import keypoints as kp
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model, load_descriptor_params
+    from cerebro_tpu_torch.train.trainer import descriptor_loss
+
+    def kp_loss(n, p, x_, y_):
+        return kp.train_loss(n, p, x_, y_)[0]
+
+    if name == "descriptor_64x64_trunk16_batch8_seeded":
+        cfg = C.DescriptorConfig(image_hw=(64, 64), trunk_dim=16, num_clusters=4, dtype="float32")
+        net, params = create_descriptor_model(cfg, seed=0, device="cpu")
+        x, y = parity_batch()
+        return net, params, descriptor_loss, torch.from_numpy(x), torch.from_numpy(y), True
+    if name == "keypoints_default_batch2_seeded":
+        # the full-width model (desc 128, width 32) on tests/test_torch_keypoints.py's batch
+        _, params = kp.create_keypoint_model(seed=0, device="cpu")
+        x, y = kp.synthetic_corner_batch(np.random.default_rng(3), 2)
+        return (kp.KeypointNet(dtype=torch.float32), params, kp_loss,
+                torch.from_numpy(x), torch.from_numpy(y), True)
+    if name == "descriptor_240x320_trunk64_batch8_synth_npz_places":
+        # the shipped synth net on 4 places x 2 views of its training world
+        cfg = C.DescriptorConfig(image_hw=(ps.H, ps.W), trunk_dim=ps.TRUNK_DIM,
+                                 num_clusters=ps.NUM_CLUSTERS, dtype="float32")
+        net, params = load_descriptor_params(SYNTH_NPZ, cfg, device="cpu")
+        tex = ps.fractal_texture(np.random.default_rng(3), n=4096)
+        x, y = ps.render_places(np.random.default_rng(11), tex, 4, 2)
+        return net, params, descriptor_loss, torch.from_numpy(x), torch.from_numpy(y), False
+    raise ValueError(name)
+
+
+def parity_batch() -> tuple:
+    """tests/test_torch_train.py's batch: 8 uint8 64x64 noise images, the
+    views of one place near copies, and their labels."""
+    labels = np.asarray([0, 0, 1, 1, 1, 2, 2, 3], np.int32)
+    rng = np.random.default_rng(2)
+    imgs = rng.integers(0, 255, size=(8, 64, 64, 1)).astype(np.uint8)
+    for i in range(1, 8):
+        if labels[i] == labels[i - 1]:
+            imgs[i] = np.clip(imgs[i - 1].astype(np.int32) + rng.integers(-8, 8, (64, 64, 1)),
+                              0, 255).astype(np.uint8)
+    return imgs, labels
+
+
+def phase_train(device) -> tuple:
+    """The training path: (a) python -m cerebro_tpu_torch.pretrain_synthetic
+    at the shipped artifact's settings, its weights in CerebroPipeline on
+    the photo world; (b) one step of the default 4,096-d net at a batch of
+    32; (c) the keypoint model's self-supervised training, held-out corner
+    hits and learned matching of a photo frame against its (8, 8) roll; (d)
+    float32 train steps on the card against the CPU. Returns (line, kernel
+    checks, launches) as phase_live does."""
+    import os
+    import tempfile
+
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import pretrain_synthetic
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.models import keypoints as kp
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model
+    from cerebro_tpu_torch.train import create_train_state, train_step
+
+    out = {"phase": "train"}
+    with open(f"{SYNTH_NPZ}/meta.json") as fh:
+        jax_meta = json.load(fh)
+
+    # (a) the descriptor, as the shipped artifact was trained
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        npz_dir = os.path.join(tmp, "descriptor_synth")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # stdout: one JSON object per line
+            summ = pretrain_synthetic.main(["--out", npz_dir, *PRETRAIN_ARGS])
+        wall = time.perf_counter() - t0
+        losses = summ["losses"]
+        margin = summ["same_place_sim"] - summ["cross_place_sim"]
+        untrained = summ["untrained_same_place_sim"] - summ["untrained_cross_place_sim"]
+        a = {
+            "args": PRETRAIN_ARGS, "images": summ["images"], "wall_s": wall,
+            "first_step_ms": summ["step_ms"][0],
+            "step_ms_mean": float(np.mean(summ["step_ms"][1:])),
+            "step_ms_min": float(np.min(summ["step_ms"][1:])),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "same_place_sim": summ["same_place_sim"], "cross_place_sim": summ["cross_place_sim"],
+            "margin": margin, "untrained_margin": untrained,
+            "jax_same_place_sim": jax_meta["same_place_sim"],
+            "jax_cross_place_sim": jax_meta["cross_place_sim"],
+            "jax_margin": jax_meta["same_place_sim"] - jax_meta["cross_place_sim"],
+        }
+        check(losses[-1] < losses[0], f"train (a): the loss did not fall ({losses[0]} -> {losses[-1]})")
+        check(margin > TRAIN_MARGIN_MIN and margin > untrained + TRAIN_MARGIN_GAIN,
+              f"train (a): separation margin {margin} (untrained {untrained})")
+        cfg = C.DescriptorConfig(image_hw=(pretrain_synthetic.H, pretrain_synthetic.W),
+                                 trunk_dim=pretrain_synthetic.TRUNK_DIM,
+                                 num_clusters=pretrain_synthetic.NUM_CLUSTERS)
+        net, params = create_descriptor_model(cfg, seed=0, device=device)
+        state, tx = create_train_state(params, lr=pretrain_synthetic.LR)
+        x, y = (torch.from_numpy(v).to(device) for v in place_batch(cfg.image_hw, 8, 4, seed=1))
+        # the forward's FLOPs: the net's, and the all-pairs loss's (32 x 32 x D)
+        a["profile"] = step_profile(lambda: train_step(net, tx, state, x, y),
+                                    forward_flops(net, x) + 2.0 * 32 * 32 * net.descriptor_dim)
+        # the written weights in the pipeline: the netvlad (c) stream, shortened
+        run, pipe = trained_photo_run(device, npz_dir, TRAIN_FRAMES, TRAIN_LAPS)
+    check_netvlad_run(run, "train: the trained net's run")
+    a["run"] = run
+    out["descriptor"] = a
+    launches = {"K1": run["k1_launches"], "K3": run["k3_launches"]}
+    q, qp, lim = db_queries(pipe, pipe.cfg.runtime.descriptor_batch, seed=256)
+    checks = {"K1": k1_measure(qp, pipe.db.vectors, q, pipe.db.vectors[:, : pipe.db.dim], lim,
+                               pipe.db.global_ids)}
+    cands = list(pipe.loop_edges) + list(pipe.rejected_candidates)
+    check(cands, "train: the trained net's run verified no pair")
+    pairs = [pipe._load_pair(c)[1:] for c in cands[:8]]
+    L = torch.from_numpy(np.stack([p[j] for p in pairs for j in (2, 0)])).to(device)
+    R = torch.from_numpy(np.stack([p[j] for p in pairs for j in (3, 1)])).to(device)
+    checks["K3"] = {"B": L.shape[0], **k3_measure(L, R)}
+    pipe.close()
+    # the shipped synth net (JAX-trained, artifacts/descriptor_synth_npz) on
+    # the same frames: what the same run makes of JAX's weights
+    shipped, spipe = trained_photo_run(device, SYNTH_NPZ, TRAIN_FRAMES, TRAIN_LAPS)
+    spipe.close()
+    check_netvlad_run(shipped, "train: the shipped net's run on the same frames")
+    a["shipped_run"] = shipped
+
+    # (b) the default net at full width: one step at a batch of 32
+    cfg = C.CerebroConfig().descriptor
+    net, params = create_descriptor_model(cfg, seed=0, device=device)
+    state, tx = create_train_state(params, lr=pretrain_synthetic.LR)
+    x, y = (torch.from_numpy(v).to(device) for v in place_batch(cfg.image_hw, 8, 4, seed=2))
+    out["full_width"] = {
+        "config": "CerebroConfig().descriptor", "descriptor_dim": net.descriptor_dim, "batch": 32,
+        **step_profile(lambda: train_step(net, tx, state, x, y),
+                       forward_flops(net, x) + 2.0 * 32 * 32 * net.descriptor_dim),
+    }
+
+    # (c) the keypoint model at its defaults, self-supervised
+    knet, kparams = kp.create_keypoint_model(device=device)
+    opt = kp.make_optimizer_state(kparams)
+    rng = np.random.default_rng(0)
+    klosses, marks = [], []
+    for _ in range(KP_STEPS):
+        imgs, labels = kp.synthetic_corner_batch(rng, KP_BATCH)
+        xi, yi = torch.from_numpy(imgs).to(device), torch.from_numpy(labels).to(device)
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        kparams, opt, loss, _, _ = kp.train_step(knet, kparams, opt, xi, yi)
+        klosses.append(loss)
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+    torch.cuda.synchronize()
+    kms = [a_.elapsed_time(b_) for a_, b_ in zip(marks, marks[1:])]
+    klosses = [float(v) for v in klosses]
+    c = {"desc_dim": knet.desc_dim, "width": knet.width, "dtype": str(knet.dtype), "batch": KP_BATCH,
+         "steps": KP_STEPS, "first_step_ms": kms[0], "step_ms_mean": float(np.mean(kms[1:])),
+         "loss_first": klosses[0], "loss_last": klosses[-1],
+         "loss_last_over_first": klosses[-1] / klosses[0]}
+    check(klosses[-1] < KP_LOSS_RATIO * klosses[0],
+          f"train (c): keypoint loss {klosses[0]} -> {klosses[-1]}")
+    # two views through the net, and InfoNCE's (64 cells)^2 x D products per image
+    c["profile"] = step_profile(lambda: kp.train_step(knet, kparams, opt, xi, yi),
+                                2 * forward_flops(knet, xi * 2.0 - 1.0)
+                                + 2.0 * KP_BATCH * 64 * 64 * knet.desc_dim)
+    # held-out corners (tests/test_keypoints.py's check)
+    hrng = np.random.default_rng(123)
+    hits = total = 0
+    for _ in range(6):
+        imgs, labels = kp.synthetic_corner_batch(hrng, 1)
+        gt_cells = np.argwhere(labels[0] != 64)
+        if len(gt_cells) == 0:
+            continue
+        kps, _ = kp.detect_keypoints(knet, kparams, torch.from_numpy(imgs[0, :, :, 0]).to(device),
+                                     max_kp=32, border=2, min_prob=0.01)
+        xy = kps.xy[kps.valid].cpu().numpy()
+        for cy, cx in gt_cells:
+            lab = labels[0, cy, cx]
+            total += 1
+            hits += int(bool(len(xy)) and np.min(np.linalg.norm(
+                xy - [cx * 8 + lab % 8, cy * 8 + lab // 8], axis=-1)) <= 3.0)
+    c.update({"heldout_corners": total, "heldout_hits": hits, "heldout_hit_rate": hits / max(total, 1)})
+    check(total >= 5 and hits / total >= KP_HITS_MIN, f"train (c): held-out hits {hits}/{total}")
+    # learned matching: a photo-world frame against its (8, 8) roll
+    ren = sw.Renderer(pw.PhotoWorld.create(seed=0))
+    pseq = pw.make_photo_sequence(n_frames=PHOTO_FRAMES, laps=PHOTO_LAPS)
+    frame = torch.from_numpy(ren.render(*map(float, pseq.xy[0])).astype(np.float32) / 255.0).to(device)
+    rolled = torch.roll(frame, (8, 8), dims=(0, 1))
+    m = kp.match_image_pair_learned(knet, kparams, frame, rolled, max_kp=512)
+    d = (m.xy_b - m.xy_a)[m.valid]
+    inl = (d - torch.tensor([8.0, 8.0], device=device)).norm(dim=-1) <= 1.0
+    n_valid = int(m.valid.sum())
+    c.update({"match_image_hw": list(frame.shape), "match_valid": n_valid,
+              "match_shift_inliers": int(inl.sum()),
+              "match_shift_inlier_share": float(inl.float().mean()) if n_valid else 0.0,
+              "detect_ms_per_frame": cuda_ms(lambda: kp.detect_keypoints(knet, kparams, frame), 10)})
+    check(n_valid >= 4 and c["match_shift_inlier_share"] >= KP_SHIFT_INLIERS,
+          f"train (c): {int(inl.sum())} of {n_valid} matches on the (8, 8) shift")
+    out["keypoints"] = c
+
+    # (d) float32 gradients on the card against the CPU (check_train holds
+    # them)
+    d = {}
+    for name in TRAIN_GRAD_CASES:
+        net, params, loss_fn, x, y, conditioned = train_grad_case(name)
+        d[name] = grads_card_vs_cpu(device, net, params, loss_fn, x, y, conditioned)
+    out["f32_card_vs_cpu"] = d
+    out["kernel_checks"] = checks
+    return out, checks, launches
+
+
+def train_grads_hold(r: dict) -> bool:
+    """A grads_card_vs_cpu result against (d)'s bounds: the loss on the card
+    within 1e-4 relative of the CPU's; each gradient tensor within its
+    ``grad_limit`` (grad_rel_err); the caller's TF32 flag changing nothing
+    beyond 1e-5 (a leak would show at ~1e-3)."""
+    return (r["loss_rel_err"] <= TRAIN_GRAD_TOL and r["grad_rel_err_max"] <= r["grad_limit"]
+            and r["tf32_on_vs_off"] <= TRAIN_TF32_TOL)
+
+
+def check_train(out: dict):
+    """(d): every case within train_grads_hold's bounds."""
+    for what, r in out["f32_card_vs_cpu"].items():
+        check(train_grads_hold(r), f"train (d): {what} f32 gradient on the card against the CPU: {r}")
+
+
+def train_kernel_entries(checks: dict, launches: dict) -> list:
+    """The kernels line of ``--phase train``: K1 on the trained net's DB
+    (D = 256, its own batch) and K3 on its verified pairs, with the run's
+    launches."""
+    entries = [
+        {**kernel_entry("k1_train_d256", "cerebro_tpu_torch/csrc/score_topk.cu",
+                        "cerebro_tpu/ops/similarity.py:98", launches["K1"],
+                        checks["K1"]["max_abs_err"], checks["K1"]), "Q": checks["K1"]["Q"]},
+        k3_entry(checks["K3"], launches["K3"]),
+    ]
+    check(all(e["launches"] > 0 for e in entries), "a kernel of the train run never launched")
+    return entries
+
+
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
@@ -2308,13 +2746,14 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live", "netvlad"),
+    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live", "netvlad", "train"),
                     default="all",
                     help="all: every phase (default); k3: build and check K3 alone; "
                          "photo: pipeline_photo at 1,000 frames over 3.5 laps; "
                          "euroc: the EuRoC entry point's phase and its kernels line; "
                          "live: the live node's phase alone on a 60 s stream, and its kernels line; "
-                         "netvlad: the netvlad and int8 phases and K1 at their widths")
+                         "netvlad: the netvlad and int8 phases and K1 at their widths; "
+                         "train: the training path's phase and its kernels line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
@@ -2363,6 +2802,13 @@ def main(argv=None) -> int:
         emit(live)
         check_live(live, launches)
         emit({"kernels": live_kernel_entries(checks, launches)})
+        return finish(smi)
+
+    if args.phase == "train":
+        train, checks, launches = phase_train(device)
+        emit(train)
+        check_train(train)
+        emit({"kernels": train_kernel_entries(checks, launches)})
         return finish(smi)
 
     world = sw.CircuitWorld.create(seed=0)
@@ -2446,6 +2892,9 @@ def main(argv=None) -> int:
     check_depth(depth)
     netvlad, netvlad_runs = phase_netvlad(device, world)
     emit(netvlad)
+    train, train_checks, train_launches = phase_train(device)
+    emit(train)
+    check_train(train)
 
     main_k1 = k1["shapes"][0]
     main_k2 = next(x for x in k2["shapes"] if x["Q"] == 8 and x["N"] == k2["N"] and x["k"] == k)
@@ -2461,9 +2910,9 @@ def main(argv=None) -> int:
     k3_main = k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]
                        + euroc_launches["K3"] + live_launches["K3"] + depth["k3_launches"]
                        + netvlad["default_config"]["k3_launches"]
-                       + netvlad["trained_synth_photo"]["k3_launches"])
+                       + netvlad["trained_synth_photo"]["k3_launches"] + train_launches["K3"])
     k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"],
-                                 live_checks["K3"]["max_abs_err"])
+                                 live_checks["K3"]["max_abs_err"], train_checks["K3"]["max_abs_err"])
     kernels = [
         kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
                      "cerebro_tpu/ops/similarity.py:98",
@@ -2475,6 +2924,7 @@ def main(argv=None) -> int:
         k3_main,
         euroc_kernel_entries(euroc_checks, euroc_launches)[-1],  # K1 at D=191
         *netvlad_kernel_entries(netvlad_runs),  # K1 at D=4,096 and D=256
+        train_kernel_entries(train_checks, train_launches)[0],  # K1 on the run of trained weights
     ]
     check(all(e["launches"] > 0 for e in kernels), "a kernel of the main path never launched")
     emit({"kernels": kernels})

@@ -45,6 +45,13 @@ import cerebro_tpu_torch.run_euroc
 import cerebro_tpu_torch.runtime
 import cerebro_tpu_torch.runtime.service
 import cerebro_tpu_torch.native
+import cerebro_tpu_torch.train
+import cerebro_tpu_torch.train.loss
+import cerebro_tpu_torch.train.trainer
+import cerebro_tpu_torch.train.optim
+import cerebro_tpu_torch.utils.precision
+import cerebro_tpu_torch.models.keypoints
+import cerebro_tpu_torch.pretrain_synthetic
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))
@@ -113,7 +120,10 @@ def test_sources_import_no_jax_or_reference_package():
                 hits.append(f"{os.path.relpath(path, REPO)}: {m.group(0).strip()}")
     assert not hits, hits
     sources = [os.path.relpath(p, REPO) for p in _port_sources()]
-    assert os.path.join("cerebro_tpu_torch", "native", "__init__.py") in sources
+    for mod in (("native", "__init__.py"), ("train", "loss.py"), ("train", "trainer.py"),
+                ("train", "optim.py"), ("utils", "precision.py"), ("models", "keypoints.py"),
+                ("pretrain_synthetic.py",)):
+        assert os.path.join("cerebro_tpu_torch", *mod) in sources
 
 
 def test_native_sources_are_the_ports_own():

@@ -505,3 +505,83 @@ def test_netvlad_net_on_the_card_matches_the_cpu(cuda, variant, dtype, tf32):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
     else:
         assert float((got * want).sum(dim=1).min()) >= 0.995
+
+
+def _chip_smoke():
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("case", ["descriptor_64x64_trunk16_batch8_seeded",
+                                  "keypoints_default_batch2_seeded",
+                                  "descriptor_240x320_trunk64_batch8_synth_npz_places"])
+def test_f32_train_gradients_on_the_card_match_the_cpu(cuda, case):
+    """A float32 train loss's gradient on the card, with the caller's TF32
+    flags on for cuDNN and matmul, against the CPU, and against the card's
+    own with the caller's flags off, on chip_smoke.py's (d) cases and by its
+    procedure and bounds (``train_grad_case``, ``grads_card_vs_cpu``,
+    ``train_grads_hold``): the loss within 1e-4 relative; each gradient
+    tensor within 1e-4 of its norm plus 1e-6 of the whole gradient's on the
+    CPU parity tests' batches, and at the artifact's 240x320 within twice
+    the change a 1e-7 relative move of the input makes on the CPU (at least
+    1e-4, at most 1e-3); TF32 on against off within 1e-5 (the step holds
+    TF32 off over the forward and the backward; cuDNN allows TF32 by
+    default, and a leak would show at ~1e-3); the caller's flags left as
+    they were."""
+    cs = _chip_smoke()
+    r = cs.grads_card_vs_cpu(cuda, *cs.train_grad_case(case))
+    assert cs.train_grads_hold(r), r
+
+
+def test_train_step_on_the_card_advances_its_state(cuda):
+    """A bf16 descriptor train step on the card: the state stays on the
+    card, the step and Adam's count advance, the loss is finite."""
+    from cerebro_tpu_torch.config import DescriptorConfig
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model
+    from cerebro_tpu_torch.train import create_train_state, train_step
+
+    cfg = DescriptorConfig(image_hw=(96, 128), trunk_dim=32, num_clusters=4)
+    net, params = create_descriptor_model(cfg, seed=0, device=cuda)
+    state, tx = create_train_state(params, lr=1e-3)
+    x = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (8, 96, 128, 1), dtype=np.uint8))
+    y = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32, device=cuda)
+    for i in range(2):
+        state, loss = train_step(net, tx, state, x.to(cuda), y)
+        assert torch.isfinite(loss) and loss.is_cuda
+    assert int(state.step) == 2 and int(state.opt_state.count) == 2
+    assert all(v.is_cuda for v in state.params.values())
+
+
+def test_detect_keypoints_on_the_card_matches_the_cpu(cuda):
+    """The seeded f32 keypoint net's detect_keypoints on the card against
+    the CPU on a 64x64 frame with fewer maxima than max_kp: xy and valid
+    exact (the (-score, index) order, the -inf tail included), scores within
+    1e-5, descriptors within 1e-4; and the tie order alone on the card:
+    equal scores come out in ascending index."""
+    from cerebro_tpu_torch.models import keypoints as kp
+    from cerebro_tpu_torch.ops.features import topk_lowest_index
+
+    _, params = kp.create_keypoint_model(desc_dim=32, width=16, seed=3, device="cpu")
+    net = kp.KeypointNet(desc_dim=32, width=16, dtype=torch.float32)
+    imgs, _ = kp.synthetic_corner_batch(np.random.default_rng(8), 1)
+    img = torch.from_numpy(imgs[0, :, :, 0])
+    kc, dc = kp.detect_keypoints(net, params, img, max_kp=256)
+    kg, dg = kp.detect_keypoints(net.to(cuda), {k: v.to(cuda) for k, v in params.items()},
+                                 img.to(cuda), max_kp=256)
+    assert int(torch.isinf(kc.score).sum()) > 0
+    assert torch.equal(kg.xy.cpu(), kc.xy) and torch.equal(kg.valid.cpu(), kc.valid)
+    finite = torch.isfinite(kc.score)
+    torch.testing.assert_close(kg.score.cpu()[finite], kc.score[finite], atol=1e-5, rtol=0)
+    torch.testing.assert_close(dg.cpu(), dc, atol=1e-4, rtol=0)
+    x = torch.from_numpy(np.random.default_rng(1).integers(0, 4, 76800).astype(np.float32)).to(cuda)
+    x[::7] = -torch.inf
+    vals, idx = topk_lowest_index(x, 60000)
+    v, i = vals.cpu().numpy(), idx.cpu().numpy()
+    order = np.lexsort((i, -v))
+    assert (order == np.arange(len(v))).all()
