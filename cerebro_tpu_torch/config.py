@@ -9,9 +9,9 @@ constant cites its source file:line.
 This is the PyTorch port's own copy of ``cerebro_tpu/config.py``: the same
 tree with the same defaults (a test holds the two equal), so one config
 describes a deployment of either package. Fields that only mean something
-to the JAX engine (``RuntimeConfig.compilation_cache_dir``, ``MeshConfig``)
-are kept for that equality and ignored here; settings the port does not run
-yet raise ``NotImplementedError`` where they are read.
+to the JAX engine (``RuntimeConfig.compilation_cache_dir``,
+``MeshConfig.num_devices``: a port mesh covers its process group) are kept
+for that equality and ignored here.
 """
 
 from __future__ import annotations

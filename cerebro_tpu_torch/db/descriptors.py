@@ -26,6 +26,12 @@ zero-padded to the next multiple of 8 (``vectors`` is (N, width)), and
 queries enter detection padded the same way (``pad_queries``). Zeros add
 nothing to a dot product: scores and matches are those of the unpadded
 rows. ``dim`` stays the logical width.
+
+A DB may hold one rank's block of a ring sharded over a mesh
+(``parallel.shard_db``): ``row0`` is the first ring row it holds and
+``ring_capacity`` the ring's rows over all ranks, so ``capacity`` is the
+ring's and the tensors hold ``local_rows`` of it. ``append`` then writes
+only the batch rows that fall in the block.
 """
 
 from __future__ import annotations
@@ -46,10 +52,16 @@ class DescriptorDB:
     count: int = 0  # number of valid rows (= min(total, capacity))
     total: int = 0  # cumulative appended entries (monotone)
     logical_dim: int | None = None  # the descriptor width; None: width
+    row0: int = 0  # first ring row held here (a shard's block)
+    ring_capacity: int | None = None  # the ring's rows on all ranks; None: local_rows
+
+    @property
+    def local_rows(self) -> int:
+        return self.vectors.shape[0]
 
     @property
     def capacity(self) -> int:
-        return self.vectors.shape[0]
+        return self.local_rows if self.ring_capacity is None else self.ring_capacity
 
     @property
     def dim(self) -> int:
@@ -99,28 +111,40 @@ def append(db: DescriptorDB, descs: torch.Tensor, n_new: int) -> DescriptorDB:
     """
     if descs.shape[1] != db.dim:
         raise ValueError(f"descriptors are {descs.shape[1]} wide, the DB holds {db.dim}")
-    rows, gids = _ring_rows(db, descs.shape[0], n_new)
     # in place: the ring rows and their ids are overwritten at the head
     # (padding columns, if any, stay zero)
-    db.vectors[rows, : db.dim] = descs.to(device=db.vectors.device, dtype=db.vectors.dtype)
-    db.global_ids[rows] = gids
+    descs = descs.to(device=db.vectors.device, dtype=db.vectors.dtype)
+    for j, r, n, gids in _ring_runs(db, descs.shape[0], n_new):
+        db.vectors[r : r + n, : db.dim] = descs[j : j + n]
+        db.global_ids[r : r + n] = gids
     db.total += int(n_new)
     db.count = min(db.total, db.capacity)
     return db
 
 
-def _ring_rows(db, B: int, n_new: int):
-    """(ring rows, global ids) of a B-row batch whose first ``n_new`` rows
-    are real, at the ring head."""
+def _ring_runs(db, B: int, n_new: int):
+    """The runs of a B-row batch at the ring head (its first ``n_new`` rows
+    real) that land in the rows held here: (first batch row, first local
+    row, length, their global ids (length,) int32) each. A batch spans at
+    most two runs of the ring (it may wrap once); a shard keeps the parts
+    inside its block. Slices, not index tensors, so nothing is read back."""
     cap = db.capacity
     if B > cap:
         raise ValueError(f"batch {B} exceeds DB capacity {cap}")
     if not 0 <= n_new <= B:
         raise ValueError(f"n_new={n_new} outside [0, {B}]")
     j = torch.arange(B, dtype=torch.int64, device=db.global_ids.device)
-    rows = (db.total + j) % cap
     gids = torch.where(j < n_new, db.total + j, torch.full_like(j, GID_INVALID)).to(torch.int32)
-    return rows, gids
+    runs, j0 = [], 0
+    while j0 < B:
+        g = (db.total + j0) % cap  # ring row of batch row j0
+        n = min(B - j0, cap - g)  # up to the ring's end
+        lo, hi = max(g, db.row0), min(g + n, db.row0 + db.local_rows)
+        if lo < hi:
+            first = j0 + lo - g
+            runs.append((first, lo - db.row0, hi - lo, gids[first : first + hi - lo]))
+        j0 += n
+    return runs
 
 
 def query_limits(
@@ -148,10 +172,16 @@ class QuantizedDB:
     count: int = 0
     total: int = 0
     logical_dim: int | None = None
+    row0: int = 0
+    ring_capacity: int | None = None
+
+    @property
+    def local_rows(self) -> int:
+        return self.values.shape[0]
 
     @property
     def capacity(self) -> int:
-        return self.values.shape[0]
+        return self.local_rows if self.ring_capacity is None else self.ring_capacity
 
     @property
     def dim(self) -> int:
@@ -179,11 +209,11 @@ def append_quantized(db: QuantizedDB, descs: torch.Tensor, n_new: int) -> Quanti
 
     if descs.shape[1] != db.dim:
         raise ValueError(f"descriptors are {descs.shape[1]} wide, the DB holds {db.dim}")
-    rows, gids = _ring_rows(db, descs.shape[0], n_new)
     q, s = quantize_rows(descs.to(db.values.device))
-    db.values[rows, : db.dim] = q
-    db.scales[rows] = s
-    db.global_ids[rows] = gids
+    for j, r, n, gids in _ring_runs(db, descs.shape[0], n_new):
+        db.values[r : r + n, : db.dim] = q[j : j + n]
+        db.scales[r : r + n] = s[j : j + n]
+        db.global_ids[r : r + n] = gids
     db.total += int(n_new)
     db.count = min(db.total, db.capacity)
     return db

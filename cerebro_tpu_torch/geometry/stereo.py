@@ -83,9 +83,18 @@ def _f32(x: float) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def rectify_map(cam, R_rect, rig: RectifiedRig, out_hw: Tuple[int, int], device="cpu"):
+def rectify_map(cam, R_rect, rig: RectifiedRig, out_hw: Tuple[int, int], device=None):
     """(H, W, 2) map on ``device``: rectified pixel -> source pixel in the
-    original distorted image (initUndistortRectifyMap equivalent)."""
+    original distorted image (initUndistortRectifyMap equivalent).
+    ``device`` defaults to the CUDA device; without CUDA pass
+    ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "rectify_map runs on the CUDA device and none is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        device = "cuda"
     H, W = out_hw
     R = torch.as_tensor(np.asarray(R_rect), dtype=torch.float32, device=device)
     f32 = torch.float32

@@ -18,6 +18,12 @@ A checkpoint directory holds
 
 A quantized checkpoint loads only into a config with ``loop.quantized``,
 and a float one only into a config without it.
+
+A mesh pipeline's ring is sharded over its ranks. Every rank calls
+``save_pipeline_state``; the blocks are gathered and rank 0 writes the
+whole ring once, in the unsharded format. ``load_pipeline_state(...,
+mesh=)`` gives each rank its block of a saved ring, whatever the number of
+ranks that saved it.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from cerebro_tpu_torch.config import CerebroConfig
 from cerebro_tpu_torch.db import descriptors as ddb
 from cerebro_tpu_torch.db.images import ImageStore
 from cerebro_tpu_torch.db.keyframes import KeyframeStore
+from cerebro_tpu_torch.parallel.sharded_search import gather_db
 from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline, LoopEdge
 
 _DB_FILE = "descriptor_db.npz"
@@ -72,26 +79,37 @@ def _saved_vectors(z) -> torch.Tensor:
 
 def _restore_db(db, z) -> None:
     """Write a saved DB into ``db`` (a fresh one of the same kind, capacity
-    and width) in place."""
+    and width; on a mesh, this rank's block of one) in place."""
     quantized = isinstance(db, ddb.QuantizedDB)
     rows = torch.from_numpy(z["values"]) if quantized else _saved_vectors(z)
     if rows.shape != (db.capacity, db.dim):
         raise ValueError(
             f"checkpoint DB is {tuple(rows.shape)}, the pipeline's is ({db.capacity}, {db.dim})"
         )
+    block = slice(db.row0, db.row0 + db.local_rows)
     target = db.values if quantized else db.vectors
-    target[:, : db.dim] = rows.to(device=target.device, dtype=target.dtype)
+    target[:, : db.dim] = rows[block].to(device=target.device, dtype=target.dtype)
     if quantized:
-        db.scales.copy_(torch.from_numpy(z["scales"]))
-    db.global_ids.copy_(torch.from_numpy(z["global_ids"]))
+        db.scales.copy_(torch.from_numpy(z["scales"][block]))
+    db.global_ids.copy_(torch.from_numpy(z["global_ids"][block]))
     db.count = int(z["count"])
     db.total = int(z["total"])
 
 
 def save_pipeline_state(pipe: CerebroPipeline, directory: str) -> None:
+    """Write the pipeline's map to ``directory``. On a mesh every rank
+    calls it; rank 0 writes, and no rank returns before the files are
+    written."""
+    db = pipe.db
+    if pipe.mesh is not None:
+        axis = pipe.cfg.mesh.axis_db
+        db = gather_db(db, pipe.mesh, axis)
+        if torch.distributed.get_rank() != 0:
+            torch.distributed.barrier()
+            return
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
-    np.savez(os.path.join(directory, _DB_FILE), **_db_arrays(pipe.db))
+    np.savez(os.path.join(directory, _DB_FILE), **_db_arrays(db))
     np.savez_compressed(
         os.path.join(directory, "keyframes.npz"), **pipe.store.to_state_dict()
     )
@@ -107,6 +125,8 @@ def save_pipeline_state(pipe: CerebroPipeline, directory: str) -> None:
     with open(os.path.join(directory, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     pipe.images.save_to(os.path.join(directory, "images"))
+    if pipe.mesh is not None:
+        torch.distributed.barrier()
 
 
 def load_pipeline_state(
@@ -118,11 +138,13 @@ def load_pipeline_state(
     describe_dim: Optional[int] = None,
     stash_dir: Optional[str] = None,
     device: Optional[str] = None,
+    mesh=None,
 ) -> CerebroPipeline:
     """A pipeline built from ``cfg`` on ``device`` (the CUDA device unless
     the caller passes ``device="cpu"``) with the checkpoint's map loaded.
     ``params``: the descriptor net's weights (kind "netvlad"), as
-    ``CerebroPipeline`` takes them. Raises ValueError when the checkpoint's
+    ``CerebroPipeline`` takes them; ``mesh``: a mesh pipeline, each rank
+    loading its block of the ring. Raises ValueError when the checkpoint's
     DB (int8 or float) is not the kind ``cfg.loop.quantized`` asks for."""
     directory = os.path.abspath(directory)
     with open(os.path.join(directory, "manifest.json")) as f:
@@ -143,7 +165,7 @@ def load_pipeline_state(
 
     pipe = CerebroPipeline(
         cfg=cfg, rig=rig, params=params, describe_fn=describe_fn, describe_dim=describe_dim,
-        device=device,
+        device=device, mesh=mesh,
     )
     if pipe.db.dim != manifest["descriptor_dim"]:
         pipe.close()

@@ -1,5 +1,6 @@
 """posegraph of the PyTorch port (counterpart of cerebro_tpu.posegraph)."""
 
+from cerebro_tpu_torch.posegraph.distributed import optimize_sharded, pad_graph  # noqa: F401
 from cerebro_tpu_torch.posegraph.optimizer import (  # noqa: F401
     PoseGraph,
     initialize_worlds,

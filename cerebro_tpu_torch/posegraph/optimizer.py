@@ -206,13 +206,22 @@ class _Linearized:
     Jacobian at (x, s_logit). Odometry rows are masked by validity; loop
     rows are scaled by s * valid, with d/ds_logit = valid * s(1-s) * r_e;
     the switch prior (1 - s) * weight * valid has d/ds_logit = -weight *
-    valid * s(1-s); the gauge 10 (x[0] - x_init[0]) pins node 0."""
+    valid * s(1-s); the gauge 10 (x[0] - x_init[0]) pins node 0.
+
+    A shard of the edges (``posegraph/distributed.py``) passes ``loops``,
+    the slots of the switch vector its loop edges own, and ``gauge``, its
+    share of the gauge's weight; ``jt`` then returns the full switch
+    vector's gradient, zero outside those slots."""
 
     def __init__(self, params: Dict[str, torch.Tensor], graph: PoseGraph, cfg: PoseGraphConfig,
-                 node_sum: _NodeSum | None = None):
+                 node_sum: _NodeSum | None = None, loops: slice | None = None,
+                 gauge: float = 10.0):
         """``node_sum`` (over the nodes of [odo_i, odo_j, loop_i, loop_j])
         makes the Jacobian blocks for ``jt``; without it, residuals only."""
         x, logit = params["x"], params["s_logit"]
+        self.loops, self.gauge, self.n_switch = loops, gauge, logit.shape[0]
+        if loops is not None:
+            logit = logit[loops]
         jacobians = node_sum is not None
         self.node_sum = node_sum
         self.odo = _Edges.linearize(x, graph.odo_i, graph.odo_j, graph.odo_meas, jacobians)
@@ -228,7 +237,7 @@ class _Linearized:
             self.ov * self.odo.r,
             self.sv * self.loop.r,
             (1.0 - s) * cfg.switch_prior_weight * lv,
-            10.0 * (x[0] - graph.xyzyaw[0]),
+            gauge * (x[0] - graph.xyzyaw[0]),
         )
 
     def cost(self) -> torch.Tensor:
@@ -236,18 +245,25 @@ class _Linearized:
 
     def j(self, v: Dict[str, torch.Tensor]):
         vx, vl = v["x"], v["s_logit"]
+        if self.loops is not None:
+            vl = vl[self.loops]
         return (
             self.ov * self.odo.apply(vx),
             self.sv * self.loop.apply(vx) + self.dl * vl[:, None],
             self.dsw * vl,
-            10.0 * vx[0],
+            self.gauge * vx[0],
         )
 
     def jt(self, u) -> Dict[str, torch.Tensor]:
         uo, ul, us, ug = u
         gx = self.node_sum([self.odo.rows_t(self.ov * uo), self.loop.rows_t(self.sv * ul)])
-        gx[0] += 10.0 * ug
-        return {"s_logit": (self.dl * ul).sum(-1) + self.dsw * us, "x": gx}
+        gx[0] += self.gauge * ug
+        gs = (self.dl * ul).sum(-1) + self.dsw * us
+        if self.loops is not None:
+            full = gs.new_zeros(self.n_switch)
+            full[self.loops] = gs
+            gs = full
+        return {"s_logit": gs, "x": gx}
 
 
 def _vdot(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -283,26 +299,44 @@ def optimize(
     """Damped Gauss-Newton, ``cfg.max_gn_iters`` steps. Returns (states
     (N, 4) or (N, 6), switches (El,), final cost), on the graph's device,
     in the states' floating type (f32 from the pipeline)."""
+    return gauss_newton(graph, graph, cfg)
+
+
+def gauss_newton(graph: PoseGraph, edges: PoseGraph, cfg: PoseGraphConfig,
+                 loops: slice | None = None, gauge: float = 10.0, reduce=None):
+    """``optimize``'s solve over ``graph``'s states and switches with the
+    residual of ``edges`` (a PoseGraph on the same nodes holding some of
+    ``graph``'s edges; its loop edges own the switch slots ``loops``, and
+    its gauge row has weight ``gauge``). ``reduce`` sums a dict of tensors
+    over the holders of the other edges: J^T r, each CG matvec's J^T J v
+    and the cost go through it. With all the edges and no ``reduce`` this
+    is ``optimize``."""
+    if reduce is None:
+        reduce = _identity
     x0 = graph.xyzyaw
     params = {
         "x": x0,
         "s_logit": torch.full(graph.loop_i.shape, 2.0, dtype=x0.dtype, device=x0.device),
     }
-    nodes = torch.cat([graph.odo_i, graph.odo_j, graph.loop_i, graph.loop_j]).to(torch.int64)
-    keep = torch.cat([graph.odo_valid, graph.odo_valid, graph.loop_valid, graph.loop_valid])
+    nodes = torch.cat([edges.odo_i, edges.odo_j, edges.loop_i, edges.loop_j]).to(torch.int64)
+    keep = torch.cat([edges.odo_valid, edges.odo_valid, edges.loop_valid, edges.loop_valid])
     node_sum = _NodeSum(nodes, keep, x0.shape[0])
     for _ in range(cfg.max_gn_iters):
-        lin = _Linearized(params, graph, cfg, node_sum)
+        lin = _Linearized(params, edges, cfg, node_sum, loops, gauge)
 
         def jtj_matvec(v, lin=lin):
-            jtv = lin.jt(lin.j(v))
+            jtv = reduce(lin.jt(lin.j(v)))
             return {k: jtv[k] + cfg.damping * v[k] for k in v}
 
-        g = lin.jt(lin.r)
+        g = reduce(lin.jt(lin.r))
         dx = _cg(jtj_matvec, {k: -v for k, v in g.items()}, cfg.cg_iters)
         params = {k: params[k] + dx[k] for k in params}
-    cost = _Linearized(params, graph, cfg).cost()
-    return params["x"], torch.sigmoid(params["s_logit"]), cost
+    cost = reduce({"cost": _Linearized(params, edges, cfg, loops=loops, gauge=gauge).cost()})
+    return params["x"], torch.sigmoid(params["s_logit"]), cost["cost"]
+
+
+def _identity(tree):
+    return tree
 
 
 def poses_from_xyzyaw(x: torch.Tensor) -> torch.Tensor:

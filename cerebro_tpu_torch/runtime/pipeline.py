@@ -28,8 +28,11 @@ producer threads through the native association engine
 The descriptor is the in-framework NetVLAD / GhostVLAD net (the default
 kind, ``models/descriptor.py``), the reference's ported MobileNet or gist;
 the DB is bf16 or, with ``loop.quantized``, int8 (searched by an int8
-product). A mesh, the one setting the port does not run, raises
-``NotImplementedError`` naming the ROADMAP item that covers it.
+product). With ``mesh=`` (``parallel.make_mesh``), the DB's ring is
+sharded over the mesh's ``db`` axis, one block per rank, and every search
+runs on the rank's block and merges over the ranks
+(``parallel/sharded_search.py``); each rank runs the rest of the pipeline
+on the same data, so every rank ends with the same candidates and edges.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ from cerebro_tpu_torch.models.descriptor import (
 from cerebro_tpu_torch.models.gist import gist_descriptors
 from cerebro_tpu_torch.models.wpca import load_wpca, whitened_describe_fn
 from cerebro_tpu_torch.ops import similarity
+from cerebro_tpu_torch.parallel import sharded_search
 from cerebro_tpu_torch.posegraph import (
     PoseGraph,
     initialize_worlds,
@@ -70,13 +74,6 @@ from cerebro_tpu_torch.posegraph import (
 )
 from cerebro_tpu_torch.utils.timing import StageTimer
 from cerebro_tpu_torch.verify.geometric import VerifiedLoop, verify_pair_batch, verify_pair_depth
-
-_Q1 = "ROADMAP Queue 1"
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({_Q1}: {item})")
-
 
 def _descriptor_state(params, dcfg, device) -> dict:
     """A DescriptorNet state on ``device`` from a PyTorch state (tensors
@@ -146,7 +143,7 @@ class CerebroPipeline:
         params=None,  # netvlad kind: a DescriptorNet state, or flax-shaped numpy params
         describe_fn=None,  # optional override: (B,H,W,C) uint8 tensor -> (B,D)
         describe_dim: Optional[int] = None,  # D of describe_fn's output
-        mesh=None,
+        mesh=None,  # parallel.Mesh: shard the DB and its searches over the ranks
         seed: int = 0,
         body_T_cam: Optional[np.ndarray] = None,  # camera mount on the body/IMU
         device: Optional[str] = None,
@@ -172,6 +169,7 @@ class CerebroPipeline:
             device = "cuda"
         self.device = torch.device(device)
         self.cfg = cfg or CerebroConfig()
+        self.mesh = mesh
         self._check_supported(mesh)
         self.rig = rig
         self.body_T_cam = None if body_T_cam is None else np.asarray(body_T_cam, np.float32)
@@ -220,6 +218,7 @@ class CerebroPipeline:
             self.db = ddb.create_quantized(lcfg.db_capacity, dim, device=self.device)
         else:
             self.db = ddb.create(lcfg.db_capacity, dim, device=self.device)
+        self.db = self._shard(self.db)
         self.det_state = detector.init_state(self.device)
         # Method-B carry (Method A's 2-entry state on the rank-0 hit)
         self.det_state_b = detector.init_state(self.device)
@@ -261,6 +260,14 @@ class CerebroPipeline:
         self.log_queries = False
         self.query_log: List[tuple] = []
 
+    def _shard(self, db):
+        """This rank's block of ``db`` on a mesh pipeline, else ``db``."""
+        if self.mesh is None:
+            return db
+        shard = (sharded_search.shard_db_quantized if isinstance(db, ddb.QuantizedDB)
+                 else sharded_search.shard_db)
+        return shard(db, self.mesh, self.cfg.mesh.axis_db)
+
     def _check_supported(self, mesh):
         cfg = self.cfg
         if cfg.loop.quantized:
@@ -276,7 +283,18 @@ class CerebroPipeline:
                     f"(the int8 product's row count), got {cfg.loop.db_capacity}"
                 )
         if mesh is not None:
-            _not_ported("a multi-device mesh", "item 7, parallel/")
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's ranks run on {mesh.device}, the pipeline on {self.device}")
+            n = mesh.shape[cfg.mesh.axis_db]
+            if cfg.loop.db_capacity % n:
+                raise ValueError(
+                    f"loop.db_capacity {cfg.loop.db_capacity} must divide over the mesh's {n} ranks"
+                )
+            if cfg.loop.quantized and self.device.type == "cuda" and (cfg.loop.db_capacity // n) % 8:
+                raise ValueError(
+                    "the quantized DB on CUDA needs each rank's block of loop.db_capacity "
+                    f"divisible by 8, got {cfg.loop.db_capacity} over {n} ranks"
+                )
         # K2 holds each query's top-k in registers, so its list size is
         # bounded; fail here rather than at the first detect batch
         k = cfg.loop.candidates_per_query if cfg.loop.method == "A" else cfg.loop.top_k
@@ -353,12 +371,15 @@ class CerebroPipeline:
 
             # at least as many rows as a top-k search asks for
             rows = max(B, self.cfg.loop.top_k, self.cfg.loop.candidates_per_query)
-            rows = -(-rows // 8) * 8  # the int8 product takes N % 8 == 0
+            # the int8 product takes N % 8 == 0, on every rank's block
+            n = 1 if self.mesh is None else self.mesh.shape[self.cfg.mesh.axis_db]
+            rows = -(-rows // 8) * 8 * n
             if isinstance(saved[0], ddb.QuantizedDB):
-                self.db = ddb.create_quantized(rows, saved[0].dim, device=self.device)
+                self.db = self._shard(ddb.create_quantized(rows, saved[0].dim, device=self.device))
                 ddb.append_quantized(self.db, descs, 0)
             else:
-                self.db = ddb.create(rows, saved[0].dim, dtype=saved[0].vectors.dtype, device=self.device)
+                self.db = self._shard(ddb.create(rows, saved[0].dim, dtype=saved[0].vectors.dtype,
+                                                 device=self.device))
                 ddb.append(self.db, descs, 0)
             gidx = torch.arange(B, dtype=torch.int32, device=self.device)
             qvalid = torch.ones(B, dtype=torch.bool, device=self.device)
@@ -521,17 +542,29 @@ class CerebroPipeline:
         tensors, read on the host by ``_drain_detections``."""
         cfg = self.cfg.loop
         method = cfg.method
+        mesh, axis = self.mesh, self.cfg.mesh.axis_db
         if method == "A" and cfg.candidates_per_query <= 1:
-            detect = detector.detect_batch_quantized if cfg.quantized else detector.detect_batch
-            cands, self.det_state = detect(cfg, self.db, self.det_state, descs, gidx, qvalid)
+            if mesh is None:
+                detect = detector.detect_batch_quantized if cfg.quantized else detector.detect_batch
+                cands, self.det_state = detect(cfg, self.db, self.det_state, descs, gidx, qvalid)
+            else:
+                detect = (sharded_search.detect_batch_quantized_sharded if cfg.quantized
+                          else sharded_search.detect_batch_sharded)
+                cands, self.det_state = detect(cfg, self.db, self.det_state, descs, gidx, qvalid,
+                                               mesh, axis)
             return ("A", cands, n_valid)
         if method not in ("A", "B", "C", "D"):
             raise ValueError(f"unknown loop method {method!r}")
 
-        # top-k retrieval: on CUDA tensors one launch of K2
+        # top-k retrieval: on CUDA tensors one launch of K2 (per rank)
         k = cfg.candidates_per_query if method == "A" else cfg.top_k
         limits = ddb.query_limits(self.db, gidx, cfg.exclusion_window)
-        vals, idx = similarity.search_topk(descs, self.db.vectors, limits, self.db.global_ids, k=k)
+        if mesh is None:
+            vals, idx = similarity.search_topk(descs, self.db.vectors, limits, self.db.global_ids, k=k)
+        else:
+            vals, idx = sharded_search.sharded_topk(
+                descs, self.db.vectors, limits, self.db.global_ids, mesh, axis, k=k
+            )
         searchable = (limits > 0) & qvalid
 
         if method == "A":
@@ -849,6 +882,21 @@ class CerebroPipeline:
         poses. Returns corrected (N, 4, 4) w_T_cam poses aligned into world
         0, or None when the graph is trivial (the reference's external
         solve_keyframe_pose_graph, in the engine)."""
+        built = self.pose_graph()
+        if built is None:
+            return None
+        graph, N = built
+        with self.timer.stage("optimize"):
+            x_opt, _, _ = optimize(graph, self.cfg.posegraph)
+            out = poses_from_xyzyaw(x_opt)[:N].cpu().numpy()  # w_T_body
+        if self.body_T_cam is not None:
+            out = out @ self.body_T_cam[None]  # back to w_T_cam
+        return out
+
+    def pose_graph(self) -> Optional[Tuple[PoseGraph, int]]:
+        """(the padded pose graph ``optimize_trajectory`` solves, its number
+        of real nodes), or None when there are fewer than 2 posed
+        keyframes."""
         kf = np.nonzero(self.store.pose_valid[: self.store.size])[0]
         if len(kf) < 2:
             return None
@@ -920,12 +968,7 @@ class CerebroPipeline:
             loop_meas=padded(lm, Bl, np.float32),
             loop_valid=padded(lv, Bl, bool),
         )
-        with self.timer.stage("optimize"):
-            x_opt, _, _ = optimize(graph, pcfg)
-            out = poses_from_xyzyaw(x_opt)[:N].cpu().numpy()  # w_T_body
-        if self.body_T_cam is not None:
-            out = out @ self.body_T_cam[None]  # back to w_T_cam
-        return out
+        return graph, N
 
     # ------------------------------------------------------------------
     # Observability

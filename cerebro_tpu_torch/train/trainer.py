@@ -11,8 +11,14 @@ computes what ``optax.adam(lr)`` computes, in optax's state layout, and
 (``describe_batch`` runs under ``no_grad``), with TF32 off on CUDA over
 the forward and the backward.
 
-The data-parallel step over a mesh (the JAX package's ``mesh=``) is not
-ported yet and raises.
+With ``mesh=``, the step is data-parallel over the mesh's ranks: each
+rank describes its contiguous ``B/n`` of the batch, the descriptors are
+all-gathered, and every rank computes the whole batch's all-pairs loss
+(the loss couples every pair of the batch, so per-rank losses would be
+another function). Autograd reaches only the rank's own descriptors, so
+each rank's parameter gradient is its shard's share, counted once; one
+``all_reduce`` sums the shares into the full batch's gradient, and every
+rank takes the same Adam step.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from cerebro_tpu_torch.models.backbones import normalize_image
 from cerebro_tpu_torch.models.descriptor import DescriptorNet, convert_params
+from cerebro_tpu_torch.parallel.mesh import all_gather, all_reduce_sum
 from cerebro_tpu_torch.train.loss import allpair_loss
 from cerebro_tpu_torch.train.optim import Adam, AdamState, apply_updates, value_and_grad
 
@@ -72,19 +79,39 @@ def train_step(
     net: DescriptorNet,
     tx: Adam,
     state: TrainState,
-    images_u8: torch.Tensor,  # (B, H, W, C) uint8
+    images_u8: torch.Tensor,  # (B, H, W, C) uint8, B divisible by the mesh axis
     labels: torch.Tensor,  # (B,) integer place ids
-    mesh=None,
+    mesh=None,  # parallel.Mesh: data-parallel over its ``axis`` ranks
     axis: str = "db",
 ) -> Tuple[TrainState, torch.Tensor]:
     """One Adam step on the all-pairs loss: (new state, the loss before
-    the step). ``mesh`` (the JAX package's data-parallel step) raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel training over a mesh is not ported yet "
-            "(ROADMAP Queue 1: item 7, parallel/)"
+    the step). On a mesh every rank passes the whole batch and gets the
+    same state."""
+    if mesh is None:
+        loss, grads = value_and_grad(
+            lambda p: descriptor_loss(net, p, images_u8, labels), state.params
         )
-    loss, grads = value_and_grad(lambda p: descriptor_loss(net, p, images_u8, labels), state.params)
+    else:
+        loss, grads = _data_parallel_grads(net, state.params, images_u8, labels, mesh, axis)
     updates, opt_state = tx.update(grads, state.opt_state, state.params)
     return TrainState(params=apply_updates(state.params, updates), opt_state=opt_state,
                       step=state.step + 1), loss
+
+
+def _data_parallel_grads(net, params, images_u8, labels, mesh, axis):
+    """(loss, gradient) of ``descriptor_loss`` on the whole batch, each rank
+    running the net on its ``B/n`` images."""
+    n, r = mesh.shape[axis], mesh.rank(axis)
+    B = images_u8.shape[0]
+    if B % n:
+        raise ValueError(f"batch {B} must divide over the mesh's {n} ranks")
+    b = B // n
+
+    def loss_fn(p):
+        local = torch.func.functional_call(net, p, (normalize_image(images_u8[r * b : (r + 1) * b]),))
+        parts = list(all_gather(local.detach(), mesh, axis))
+        parts[r] = local  # the gradient flows through this rank's rows only
+        return allpair_loss(torch.cat(parts), labels)
+
+    loss, grads = value_and_grad(loss_fn, params)
+    return loss, all_reduce_sum(grads, mesh, axis)

@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phase live  # the live node alone, on a 60 s stream
     python3 chip_smoke.py --phase netvlad  # the netvlad kind and the int8 DB alone
     python3 chip_smoke.py --phase train    # the training path alone
+    python3 chip_smoke.py --phase synthetic,mesh,calib  # any of the three alone
 
 Phases, each printed as one JSON line with its wall time (stage times of
 the pipeline phases are means without each stage's first call, which is
@@ -223,10 +224,38 @@ also reported):
             the artifact's 240x320, trunk 64 (whose untrained shallow
             layers move by ~2e-3 under such a move), and the keypoint model
             at its defaults;
+  synthetic python -m cerebro_tpu_torch.run_synthetic's main at its
+            defaults (14 frames, then the kidnap and 4 revisits): it must
+            print OK; its edges and session-2 ATE beside the JAX script's
+            --cpu run (4 edges, 0.0016 m); K1 once per detect batch, no K2,
+            K3 launched; K1 against its plain version at the run's D = 256
+            over 1,024 rows;
+  mesh      the mesh at world size 1 (NCCL over a localhost TCP store):
+            (a) sharded_max_and_argmax, sharded_topk (k = 1, 3, 5) and
+            sharded_max_and_argmax_int8 at Q=8 x N=29,184 x D=8,192 equal to
+            the unsharded calls (gids and scores exact), with both times;
+            (b) K1, K2 and the int8 search on 4 row blocks of that DB,
+            merged by merge_argmax / merge_topk, equal to one call; (c) the
+            pipeline phase's settings on its stream at 200 frames over the
+            2 laps, with and without mesh=: the same candidates and edges,
+            K1 once per detect batch; (d) optimize_sharded bit-equal to
+            optimize on pipeline_topk's 365-keyframe graph, both timed; (e)
+            the data-parallel train step of the 4,096-d net at a batch of
+            32 against the plain step (loss and gradient within 1e-4);
+  calib     calibrate_planar for the pinhole, Kannala-Brandt, Mei and
+            Scaramuzza models (tests/test_calibration.py's boards) on the
+            card against the CPU: the paraxial focal within 2% of the
+            truth, the card within 5e-5 (focal) and 0.01 px (centre) of the
+            CPU; detect_chessboard on 4 rendered boards, card against CPU:
+            the same corners in the same order (or, where the two
+            orientations' fits tie, the half turn); then calibrate_planar
+            from the card's corners on 5 views through a distorted pinhole:
+            fx, fy within 2%;
   kernels   one entry per kernel: launches in the main-path runs (K1 in
-            pipeline, euroc and live, K2 in pipeline_topk, pipeline_photo,
-            euroc and depth, K3 in pipeline, pipeline_topk, pipeline_photo,
-            euroc and live), error against its
+            pipeline, euroc, live, synthetic and mesh's pipeline, K2 in
+            pipeline_topk, pipeline_photo, euroc and depth, K3 in pipeline,
+            pipeline_topk, pipeline_photo, euroc, live, synthetic and mesh's
+            pipeline), error against its
             plain version (the largest over every shape it was held at),
             kernel / plain / library times and the bound; K2's also
             carries the top-3 search_topk call's times and its one-pass
@@ -266,6 +295,12 @@ and the last two lines.
 phases, then a kernels line of k1_train_d256 and K3 from the train run and
 the last two lines.
 
+``--phase synthetic,mesh,calib`` (one, two or all three) builds every
+kernel and runs the ``device``, ``k1``, ``k2`` and ``k3`` phases, the
+phases named (mesh after a ``pipeline_topk`` run, whose graph it solves),
+a kernels line of K1 and K3 with those phases' launches (none for calib
+alone) and the last two lines.
+
 ``--phase photo`` builds every kernel and runs the ``device`` phase, the
 ``k2`` checks with the photo shape at this run's 2,048-row DB, and
 ``pipeline_photo`` at 1,000 frames over 3.5 laps (bench_e2e.py's photo
@@ -288,6 +323,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -2729,6 +2765,385 @@ def train_kernel_entries(checks: dict, launches: dict) -> list:
     return entries
 
 
+# ---------------------------------------------------------------------------
+# synthetic, mesh and calib: run_synthetic, the mesh (parallel/,
+# posegraph/distributed.py, mesh= in the pipeline and the train step) and
+# the calibration tools
+# ---------------------------------------------------------------------------
+
+# the JAX script's own run (scripts/run_synthetic.py --cpu at its 14
+# frames, on an 8-core Intel Xeon), printed beside the card's
+SYNTH_JAX_CPU = {"verified_edges": 4, "session2_merged_ate_m": 0.0016}
+MESH_FRAMES, MESH_LAPS = 200, 2.0  # the pipeline stream, 200 frames over its 2 laps
+MESH_BLOCKS = 4  # the row blocks of the one-process n-shard merge
+MESH_SEARCH = (8, 29184, 8192)  # Q x N x D of the sharded searches (the k1 phase's main shape)
+CALIB_REL = 0.02  # tests/test_calibration.py's 2% of ground truth
+CALIB_PX, CALIB_FOCAL_REL = 0.01, 5e-5  # card against CPU (tests/test_torch_calibration.py)
+
+
+def phase_synthetic(device) -> tuple:
+    """python -m cerebro_tpu_torch.run_synthetic at its defaults on the
+    card: it must print OK; K1 once per detect batch, no K2, K3 launched;
+    then K1 against its plain version at the run's width (D = 256) over a
+    DB of the run's 1,024 rows."""
+    import tempfile
+
+    from cerebro_tpu_torch import run_synthetic
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+
+    K1.launches = K2.launches = K3.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_synthetic_") as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):  # its report: stdout keeps one JSON object a line
+            r = run_synthetic.main(["--out", tmp])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        debug = sorted(os.listdir(os.path.join(tmp, "debug")))
+    launches = {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches}
+    st = r["status"]
+    out = {
+        "phase": "synthetic", "seconds": secs, "ok": r["ok"],
+        "verified_edges": r["verified_edges"], "session2_merged_ate_m": r["session2_merged_ate_m"],
+        "jax_script_cpu": SYNTH_JAX_CPU,
+        "keyframes": st["keyframes"], "described": st["described"], "loop_edges": st["loop_edges"],
+        "rejected_candidates": st["rejected_candidates"], "worlds": st["kidnap"]["world_id"] + 1,
+        "detect_batches": st["timings_ms"]["detect"]["count"],
+        "k1_launches": launches["K1"], "k2_launches": launches["K2"], "k3_launches": launches["K3"],
+        "debug_files": len(debug),
+    }
+    check(r["ok"], "run_synthetic printed DEGRADED")
+    check(launches["K1"] == out["detect_batches"],
+          f"run_synthetic: K1 launched {launches['K1']} times for {out['detect_batches']} detect batches")
+    check(launches["K2"] == 0 and launches["K3"] >= 1, f"run_synthetic: launches {launches}")
+    q, db, lim, gids, _, _ = k1_case(8, 1024, 256, device, seed=11)
+    out["k1_check"] = k1_measure(q, db, q, db, lim, gids)
+    return out, launches
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _block_merge_checks(q, db, lim, gids, dbq, dbs) -> dict:
+    """K1, K2 (k = 1, 3, 5) and the int8 search on MESH_BLOCKS row blocks
+    of one DB, merged by the mesh's merge functions, against the unsharded
+    calls: gids exact, scores equal."""
+    from cerebro_tpu_torch import parallel as par
+    from cerebro_tpu_torch.ops import similarity as sim
+
+    rows = db.shape[0] // MESH_BLOCKS
+    blocks = [slice(i * rows, (i + 1) * rows) for i in range(MESH_BLOCKS)]
+    out = {"blocks": MESH_BLOCKS, "rows_per_block": rows}
+
+    def stack(parts):
+        return [torch.stack(x) for x in zip(*parts)]
+
+    m, a = par.merge_argmax(*stack([sim.max_and_argmax_cuda(q, db[b], lim, gids[b]) for b in blocks]))
+    pm, pa = sim.max_and_argmax_cuda(q, db, lim, gids)
+    check(torch.equal(a, pa) and torch.equal(m, pm), "K1 on 4 blocks, merged, differs from one call")
+    for k in (1, 3, 5):
+        v, g = par.merge_topk(*stack([sim.search_topk_cuda(q, db[b], lim, gids[b], k=k) for b in blocks]), k)
+        pv, pg = sim.search_topk_cuda(q, db, lim, gids, k=k)
+        check(torch.equal(g, pg) and torch.equal(v, pv), f"K2 top-{k} on 4 blocks, merged, differs")
+    m, a = par.merge_argmax(*stack([sim.max_and_argmax_int8_cuda(q, dbq[b], dbs[b], lim, gids[b])
+                                    for b in blocks]))
+    pm, pa = sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids)
+    check(torch.equal(a, pa) and torch.equal(m, pm), "int8 on 4 blocks, merged, differs")
+    out["k1_k2_int8_gids_exact"] = True
+    return out
+
+
+def _mesh_pipeline_runs(device, world, mesh) -> dict:
+    """The pipeline phase's settings on its stream at MESH_FRAMES frames
+    over MESH_LAPS laps, without a mesh and with one: the same candidates
+    and edges (pairs and poses), and the mesh run's launches."""
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    cfg = C.CerebroConfig(descriptor=C.DescriptorConfig(kind="ported"),
+                          verify=C.VerifyConfig(cascade=False, min_matches_accept=200))
+    survey = synth_survey(world, MESH_FRAMES, MESH_LAPS)
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        pipe = CerebroPipeline(cfg, rig=survey[1].rig(), mesh=m, device=device)
+        K1.launches = K2.launches = K3.launches = 0
+        t0 = time.perf_counter()
+        feed_frames(pipe, *survey)
+        cands = sorted((c.idx_curr, c.idx_prev) for c in pipe.candidates)
+        accepted = pipe.verify_pending(cascade=False)
+        torch.cuda.synchronize()
+        runs[name] = {
+            "seconds": time.perf_counter() - t0, "candidates": cands, "edges_accepted": accepted,
+            "edges": sorted((e.idx_curr, e.idx_prev, e.T_prev_curr.tobytes()) for e in pipe.loop_edges),
+            "detect_batches": pipe.timer.stats()["detect"]["count"],
+            "launches": {"K1": K1.launches, "K2": K2.launches, "K3": K3.launches},
+            "db_local_rows": pipe.db.local_rows,
+        }
+        pipe.close()
+    plain, sharded = runs["plain"], runs["mesh"]
+    check(sharded["candidates"] == plain["candidates"] and len(plain["candidates"]) >= 1,
+          "the mesh pipeline's candidates differ from the plain run's")
+    check(sharded["edges"] == plain["edges"] and plain["edges_accepted"] >= 1,
+          "the mesh pipeline's edges differ from the plain run's")
+    check(sharded["launches"]["K1"] == sharded["detect_batches"] and sharded["launches"]["K3"] > 0,
+          f"the mesh pipeline's launches {sharded['launches']}")
+    return {
+        "frames": MESH_FRAMES, "laps": MESH_LAPS, "candidates": len(plain["candidates"]),
+        "edges_accepted": plain["edges_accepted"], "same_candidates_and_edges": True,
+        "plain_s": plain["seconds"], "mesh_s": sharded["seconds"],
+        "detect_batches": sharded["detect_batches"], "mesh_launches": sharded["launches"],
+        "mesh_db_local_rows": sharded["db_local_rows"],
+    }
+
+
+def _timed_s(fn) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def phase_mesh(device, world, topk_pipe) -> tuple:
+    """The mesh at world size 1 (NCCL over a localhost TCP store; one card
+    takes one rank): the sharded K1 / K2 / int8 searches at Q = 8 x N =
+    29,184 x D = 8,192 against the unsharded calls, and the same DB's
+    4-block merge; the pipeline with and without mesh=; optimize_sharded
+    against optimize on pipeline_topk's graph; the data-parallel train step
+    at a batch of 32 against the plain step."""
+    import torch.distributed as dist
+
+    from cerebro_tpu_torch import config as C
+    from cerebro_tpu_torch import parallel as par
+    from cerebro_tpu_torch.models.descriptor import create_descriptor_model
+    from cerebro_tpu_torch.ops import similarity as sim
+    from cerebro_tpu_torch.parallel.multihost import host_info, init_multihost
+    from cerebro_tpu_torch.posegraph import optimize, optimize_sharded, pad_graph
+    from cerebro_tpu_torch.train import create_train_state, train_step
+
+    init_multihost(f"127.0.0.1:{_free_port()}", 1, 0, device=device.type)
+    try:
+        mesh = par.make_mesh()
+        out = {"phase": "mesh", "backend": dist.get_backend(), "host_info": host_info(),
+               "mesh_shape": mesh.shape}
+        # (a) the sharded searches at world size 1 against the unsharded calls
+        Q, N, D = MESH_SEARCH
+        q, db, lim, gids, expect, _ = k1_case(Q, N, D, device, seed=21)
+        mx, ar = par.sharded_max_and_argmax(q, db, lim, gids, mesh)
+        pm, pa = sim.max_and_argmax_cuda(q, db, lim, gids)
+        check(torch.equal(ar, pa) and torch.equal(mx, pm) and torch.equal(ar.cpu(), expect),
+              "sharded_max_and_argmax differs from K1")
+        search = {"Q": Q, "N": N, "D": D,
+                  "k1_mesh_ms": cuda_ms(lambda: par.sharded_max_and_argmax(q, db, lim, gids, mesh), 20),
+                  "k1_plain_call_ms": cuda_ms(lambda: sim.max_and_argmax_cuda(q, db, lim, gids), 20)}
+        for k in (1, 3, 5):
+            v, g = par.sharded_topk(q, db, lim, gids, mesh, k=k)
+            pv, pg = sim.search_topk_cuda(q, db, lim, gids, k=k)
+            check(torch.equal(g, pg) and torch.equal(v, pv), f"sharded_topk k={k} differs from K2")
+        search["k2_top3_mesh_ms"] = cuda_ms(lambda: par.sharded_topk(q, db, lim, gids, mesh, k=3), 20)
+        search["k2_top3_plain_call_ms"] = cuda_ms(lambda: sim.search_topk_cuda(q, db, lim, gids, k=3), 20)
+        dbq, dbs = sim.quantize_rows(db.float())
+        im, ia = par.sharded_max_and_argmax_int8(q, dbq, dbs, lim, gids, mesh)
+        pm, pa = sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids)
+        check(torch.equal(ia, pa) and torch.equal(im, pm), "sharded int8 differs from the int8 call")
+        search["int8_mesh_ms"] = cuda_ms(
+            lambda: par.sharded_max_and_argmax_int8(q, dbq, dbs, lim, gids, mesh), 20)
+        search["int8_plain_call_ms"] = cuda_ms(lambda: sim.max_and_argmax_int8_cuda(q, dbq, dbs, lim, gids), 20)
+        search["world_size_1_gids_exact"] = True
+        out["search"] = search
+        # (b) the n-shard merge in one process
+        out["block_merge"] = _block_merge_checks(q, db, lim, gids, dbq, dbs)
+        del q, db, dbq, dbs
+        torch.cuda.empty_cache()
+        # (c) the pipeline with mesh= against without
+        out["pipeline"] = _mesh_pipeline_runs(device, world, mesh)
+        # (d) optimize_sharded against optimize on pipeline_topk's graph
+        graph, n_nodes = topk_pipe.pose_graph()
+        pcfg = topk_pipe.cfg.posegraph
+        (x1, s1, c1), t_plain = _timed_s(lambda: optimize(graph, pcfg))
+        (x2, s2, c2), t_mesh = _timed_s(lambda: optimize_sharded(pad_graph(graph, 1), pcfg, mesh))
+        check(torch.equal(x1, x2) and torch.equal(s1, s2) and torch.equal(c1, c2),
+              "optimize_sharded at one rank differs from optimize")
+        out["posegraph"] = {"nodes": n_nodes, "padded_nodes": int(graph.xyzyaw.shape[0]),
+                            "loop_edges": int(graph.loop_valid.sum()), "optimize_s": t_plain,
+                            "optimize_sharded_s": t_mesh, "bit_equal": True}
+        # (e) the data-parallel train step at a batch of 32
+        dcfg = C.CerebroConfig().descriptor
+        net, params = create_descriptor_model(dcfg, seed=0, device=device)
+        state, tx = create_train_state(params, lr=5e-4)
+        x, y = (torch.from_numpy(v).to(device) for v in place_batch(dcfg.image_hw, 8, 4, seed=2))
+        (plain, l_plain), t_plain = _timed_s(lambda: train_step(net, tx, state, x, y))
+        (dp, l_dp), t_dp = _timed_s(lambda: train_step(net, tx, state, x, y, mesh=mesh))
+        # mu = 0.1 x the gradient
+        err = grad_rel_err(dp.opt_state.mu, {k: v.cpu() for k, v in plain.opt_state.mu.items()})
+        loss_err = abs(float(l_dp) - float(l_plain)) / abs(float(l_plain))
+        check(loss_err <= TRAIN_GRAD_TOL and err <= TRAIN_GRAD_TOL,
+              f"the data-parallel step differs from the plain step: loss {loss_err}, gradient {err}")
+        out["train"] = {"batch": 32, "descriptor_dim": net.descriptor_dim, "loss": float(l_plain),
+                        "loss_rel_err": loss_err, "grad_rel_err": err,
+                        "plain_step_s": t_plain, "mesh_step_s": t_dp,
+                        "plain_step_ms": cuda_ms(lambda: train_step(net, tx, state, x, y), 3, 1),
+                        "mesh_step_ms": cuda_ms(lambda: train_step(net, tx, state, x, y, mesh=mesh), 3, 1)}
+    finally:
+        dist.destroy_process_group()
+    launches = out["pipeline"]["mesh_launches"]
+    return out, launches
+
+
+def _checker(xb, yb, square: float, soft: float, rows: int, cols: int):
+    """tests/test_chessboard.py's antialiased board colour at board
+    coordinates; inner corner (i, j) at ((j + 1) sq, (i + 1) sq)."""
+    def softsq(t):
+        return 0.5 * (1.0 + np.tanh(np.sin(np.pi * t) / soft))
+
+    cx, cy = softsq(xb / square), softsq(yb / square)
+    col = cx * cy + (1 - cx) * (1 - cy)
+    inside = (xb > 0) & (xb < (cols + 1) * square) & (yb > 0) & (yb < (rows + 1) * square)
+    return np.where(inside, col, 0.5)
+
+
+def _render_homography(Hm, rows: int, cols: int, hw=(240, 320)):
+    H, W = hw
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64))
+    p = np.stack([u, v, np.ones_like(u)], axis=-1) @ np.linalg.inv(Hm).T
+    scale = np.abs(Hm[0, 0]) + np.abs(Hm[1, 1])
+    img = _checker(p[..., 0] / p[..., 2], p[..., 1] / p[..., 2], 1.0, 2.0 / max(scale, 1e-6), rows, cols)
+    return img.astype(np.float32)
+
+
+def _render_camera_view(cam, c_T_board, rows: int, cols: int, square: float, hw=(240, 320)):
+    """The board through a (distorted) camera: each pixel's ray, lifted on
+    the CPU, meets the board plane."""
+    from cerebro_tpu_torch.geometry import cameras
+
+    H, W = hw
+    u, v = np.meshgrid(np.arange(W, dtype=np.float32), np.arange(H, dtype=np.float32))
+    rays = cameras.lift(cam, torch.from_numpy(np.stack([u, v], -1).reshape(-1, 2))).numpy()
+    Rt, t = c_T_board[:3, :3].T, c_T_board[:3, 3]
+    denom = rays @ Rt[2]
+    denom = np.where(np.abs(denom) < 1e-9, 1e-9, denom)
+    s = (Rt[2] @ t) / denom
+    Xb = (s[:, None] * rays - t) @ Rt.T
+    img = np.where(s <= 0, 0.5, _checker(Xb[:, 0], Xb[:, 1], square, 0.06, rows, cols))
+    return img.reshape(H, W).astype(np.float32)
+
+
+def _calib_views(cam, board, rng, n_views: int, angle_deg: float, z):
+    """tests/test_calibration.py's views: random poses, projected on the
+    CPU, 0.1 px of noise."""
+    from cerebro_tpu_torch.geometry import cameras, se3
+
+    board3 = np.concatenate([board, np.zeros((len(board), 1), np.float32)], -1)
+    obs = []
+    for _ in range(n_views):
+        ypr = np.deg2rad(rng.uniform(-angle_deg, angle_deg, 3)).astype(np.float32)
+        R = se3.ypr_to_rot(torch.from_numpy(ypr)).numpy()
+        t = np.array([rng.uniform(-0.1, 0.1) - 0.3, rng.uniform(-0.1, 0.1) - 0.2, rng.uniform(*z)],
+                     np.float32)
+        uv = cameras.project(cam, torch.from_numpy(board3 @ R.T + t)).numpy()
+        obs.append((uv + rng.normal(0, 0.1, uv.shape)).astype(np.float32))
+    return np.stack(obs)
+
+
+def _same_grid(got, want) -> str:
+    """'same' or 'reversed': the two orientations of a half-turn-symmetric
+    grid whose fits tie (tests/test_torch_calibration.py's _same_grid)."""
+    if np.allclose(got, want, atol=1e-3, rtol=0):
+        return "same"
+    check(np.allclose(got, want[::-1], atol=1e-3, rtol=0), "the card's corner grid differs from the CPU's")
+    return "reversed"
+
+
+def phase_calib(device) -> dict:
+    """calibrate_planar for the four camera models on synthetic boards,
+    and detect_chessboard on rendered boards, on the card against the CPU;
+    then calibration from the card's detected corners. Checks: intrinsics
+    within 2% of ground truth, the card within CALIB_PX / CALIB_FOCAL_REL of
+    the CPU, RMS < 0.5 px, the same corners in the same order."""
+    from cerebro_tpu_torch.geometry import calibration as cal
+    from cerebro_tpu_torch.geometry import cameras, chessboard as cb, se3
+
+    out = {"phase": "calib", "models": {}, "boards": {}}
+    board = np.stack(np.mgrid[0:6, 0:8][::-1], -1).reshape(-1, 2).astype(np.float32) * 0.08
+    models = {
+        cameras.PINHOLE: (cameras.make_pinhole(460.0, 455.0, 370.0, 245.0, (-0.25, 0.06, 0.0, 0.0)),
+                          25, (0.6, 1.2), 460.0),
+        cameras.KANNALA_BRANDT: (cameras.make_kannala_brandt(380.0, 375.0, 370.0, 245.0,
+                                                             (-0.01, 0.02, -0.008, 0.001)), 30, (0.35, 0.7), 380.0),
+        cameras.MEI: (cameras.make_mei(720.0, 710.0, 370.0, 245.0, xi=0.9, dist=(-0.1, 0.02, 0.0, 0.0)),
+                      30, (0.35, 0.7), 720.0 / 1.9),
+        cameras.SCARAMUZZA: (cameras.make_scaramuzza(1.0, 370.0, 245.0, poly=(420.0, -6e-4, 1e-7, 0.0)),
+                             30, (0.35, 0.7), 420.0),
+    }
+
+    def focal(model, cam):  # what the views pin down: the paraxial focal
+        if model == cameras.MEI:
+            return float(cam.fx) / (1.0 + float(cam.xi))
+        return float(cam.dist[0]) if model == cameras.SCARAMUZZA else float(cam.fx)
+
+    for model, (gt, angle, z, f_gt) in models.items():
+        obs = _calib_views(gt, board, np.random.default_rng(0), 10, angle, z)
+        r_cpu, t_cpu = _timed_s(lambda: cal.calibrate_planar(board, obs, model=model, device="cpu"))
+        r_gpu, t_gpu = _timed_s(lambda: cal.calibrate_planar(board, obs, model=model, device=str(device)))
+        f_c, f_g = focal(model, r_cpu.camera), focal(model, r_gpu.camera)
+        rec = {"focal": f_g, "focal_cpu": f_c, "focal_truth": f_gt, "rms_px": float(r_gpu.rms_px),
+               "rms_px_cpu": float(r_cpu.rms_px), "cx": float(r_gpu.camera.cx), "cy": float(r_gpu.camera.cy),
+               "success": r_gpu.success, "card_s": t_gpu, "cpu_s": t_cpu}
+        check(r_gpu.success and r_cpu.success and rec["rms_px"] < 0.5, f"calib {model}: {rec}")
+        check(abs(f_g - f_gt) / f_gt < CALIB_REL, f"calib {model}: focal {f_g} against {f_gt}")
+        check(abs(f_g - f_c) <= CALIB_FOCAL_REL * abs(f_c)
+              and abs(rec["cx"] - float(r_cpu.camera.cx)) < CALIB_PX
+              and abs(rec["cy"] - float(r_cpu.camera.cy)) < CALIB_PX,
+              f"calib {model}: the card's intrinsics differ from the CPU's: {rec}")
+        out["models"][model] = rec
+
+    rows, cols = 5, 7
+    rng = np.random.default_rng(3)
+    boards = {"axis_aligned": np.array([[28.0, 0, 30.0], [0, 28.0, 25.0], [0, 0, 1.0]])}
+    for t in range(3):
+        th = rng.uniform(-0.3, 0.3)
+        Hm = np.eye(3)
+        Hm[:2, :2] = np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]) * 26.0
+        Hm[:2, 2] = [60.0 + 10 * t, 50.0]
+        Hm[2, :2] = rng.uniform(-6e-4, 6e-4, size=2)
+        boards[f"perspective{t}"] = Hm
+    for name, Hm in boards.items():
+        img = _render_homography(Hm, rows, cols)
+        (c_g, f_g), t_gpu = _timed_s(lambda: cb.detect_chessboard(img, (rows, cols), device=str(device)))
+        c_c, f_c = cb.detect_chessboard(img, (rows, cols), device="cpu")
+        check(f_g and f_c, f"detect_chessboard {name}: found {f_g} on the card, {f_c} on the CPU")
+        out["boards"][name] = {"order": _same_grid(c_g, c_c), "card_s": t_gpu}
+
+    # calibration from the card's detections of a distorted camera's views
+    gt = cameras.make_pinhole(300.0, 310.0, 160.0, 120.0, (-0.12, 0.05, 0.0, 0.0), width=320, height=240)
+    sq = 0.04
+    obs = []
+    for rx, ry, rz in [(0.0, 0.0, 0.0), (0.35, 0.1, 0.2), (-0.3, 0.25, -0.15), (0.1, -0.35, 0.3),
+                       (-0.2, -0.2, -0.3)]:
+        R = se3.so3_exp(torch.tensor([rx, ry, rz], dtype=torch.float32)).numpy()
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = R
+        T[:3, 3] = -R @ np.array([(cols + 1) * sq / 2, (rows + 1) * sq / 2, 0.0], np.float32) + [0, 0, 0.55]
+        corners, found = cb.detect_chessboard(_render_camera_view(gt, T, rows, cols, sq), (rows, cols),
+                                              device=str(device))
+        check(found, "detect_chessboard missed a rendered camera view")
+        obs.append(corners)
+    res = cal.calibrate_planar(cb.board_points((rows, cols), sq), np.stack(obs), image_size=(320, 240),
+                               iters=30, device=str(device))
+    out["from_images"] = {"fx": float(res.camera.fx), "fy": float(res.camera.fy), "rms_px": float(res.rms_px),
+                          "success": res.success}
+    check(res.success and float(res.rms_px) < 0.5 and abs(float(res.camera.fx) - 300.0) / 300.0 < CALIB_REL
+          and abs(float(res.camera.fy) - 310.0) / 310.0 < CALIB_REL, f"calib from images: {out['from_images']}")
+    return out
+
+
 def check(cond: bool, msg: str):
     if not cond:
         raise AssertionError(msg)
@@ -2746,15 +3161,20 @@ def kernel_entry(name, source, replaces, launches, err, t: dict) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
-    ap.add_argument("--phase", choices=("all", "k3", "photo", "euroc", "live", "netvlad", "train"),
-                    default="all",
+    ap.add_argument("--phase", default="all",
                     help="all: every phase (default); k3: build and check K3 alone; "
                          "photo: pipeline_photo at 1,000 frames over 3.5 laps; "
                          "euroc: the EuRoC entry point's phase and its kernels line; "
                          "live: the live node's phase alone on a 60 s stream, and its kernels line; "
                          "netvlad: the netvlad and int8 phases and K1 at their widths; "
-                         "train: the training path's phase and its kernels line")
+                         "train: the training path's phase and its kernels line; "
+                         "synthetic, mesh, calib (one or more, comma-separated): those phases, "
+                         "the k1 / k2 / k3 checks and a kernels line of K1 and K3")
     args = ap.parse_args(argv)
+    last = args.phase.split(",")
+    if args.phase not in ("all", "k3", "photo", "euroc", "live", "netvlad", "train") and not (
+            set(last) <= set(LAST_PHASES)):
+        ap.error(f"unknown --phase {args.phase!r}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 1
@@ -2812,6 +3232,9 @@ def main(argv=None) -> int:
         return finish(smi)
 
     world = sw.CircuitWorld.create(seed=0)
+    if set(last) <= set(LAST_PHASES):
+        return run_last_phases(device, world, [p for p in LAST_PHASES if p in last], smi)
+
     if args.phase == "netvlad":
         netvlad, runs = phase_netvlad(device, world)
         emit(netvlad)
@@ -2878,8 +3301,14 @@ def main(argv=None) -> int:
 
     emit(phase_profile(engine, cands, topk_engine))
     engine.close()
-    topk_engine.close()
     photo_engine.close()
+
+    synthetic, synth_launches = phase_synthetic(device)
+    emit(synthetic)
+    mesh, mesh_launches = phase_mesh(device, world, topk_engine)
+    emit(mesh)
+    topk_engine.close()
+    emit(phase_calib(device))
 
     euroc, euroc_checks, euroc_launches = phase_euroc(device)
     emit(euroc)
@@ -2910,15 +3339,18 @@ def main(argv=None) -> int:
     k3_main = k3_entry(k3, run["k3_launches"] + topk["k3_launches"] + photo["k3_launches"]
                        + euroc_launches["K3"] + live_launches["K3"] + depth["k3_launches"]
                        + netvlad["default_config"]["k3_launches"]
-                       + netvlad["trained_synth_photo"]["k3_launches"] + train_launches["K3"])
+                       + netvlad["trained_synth_photo"]["k3_launches"] + train_launches["K3"]
+                       + synth_launches["K3"] + mesh_launches["K3"])
     k3_main["max_abs_err"] = max(k3_main["max_abs_err"], euroc_checks["K3"]["max_abs_err"],
                                  live_checks["K3"]["max_abs_err"], train_checks["K3"]["max_abs_err"])
     kernels = [
         kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
                      "cerebro_tpu/ops/similarity.py:98",
-                     run["k1_launches"] + euroc_launches["K1"] + live_launches["K1"],
+                     run["k1_launches"] + euroc_launches["K1"] + live_launches["K1"]
+                     + synth_launches["K1"] + mesh_launches["K1"],
                      max([x["max_abs_err"] for x in k1["shapes"]]
-                         + [euroc_checks["K1"]["max_abs_err"], live_checks["K1"]["max_abs_err"]]),
+                         + [euroc_checks["K1"]["max_abs_err"], live_checks["K1"]["max_abs_err"],
+                            synthetic["k1_check"]["max_abs_err"]]),
                      main_k1),
         k2_euroc_entry(k2_entry, euroc_checks),
         k3_main,
@@ -2928,6 +3360,48 @@ def main(argv=None) -> int:
     ]
     check(all(e["launches"] > 0 for e in kernels), "a kernel of the main path never launched")
     emit({"kernels": kernels})
+    return finish(smi)
+
+
+LAST_PHASES = ("synthetic", "mesh", "calib")
+
+
+def run_last_phases(device, world, phases, smi: str) -> int:
+    """``--phase synthetic,mesh,calib`` (any of them): the k1, k2 and k3
+    checks, the phases asked for (mesh after a pipeline_topk run, whose
+    graph it solves), and a kernels line of K1 and K3 with those phases'
+    launches (K2 is not on their paths: Method A top-1)."""
+    from cerebro_tpu_torch.ops.similarity import K1, K2
+    from cerebro_tpu_torch.ops.stereo_kernel import K3
+
+    k1 = phase_k1(device)
+    emit(k1)
+    emit(phase_k2(device, photo_N=photo_config(PHOTO_FRAMES).loop.db_capacity))
+    k3 = phase_k3(device, world)
+    emit(k3)
+    launches = {"K1": 0, "K3": 0}
+    errs = [x["max_abs_err"] for x in k1["shapes"]]
+    if "synthetic" in phases:
+        synthetic, got = phase_synthetic(device)
+        emit(synthetic)
+        errs.append(synthetic["k1_check"]["max_abs_err"])
+        launches = {k: launches[k] + got[k] for k in launches}
+    if "mesh" in phases:
+        K1.launches = K2.launches = K3.launches = 0
+        topk, topk_engine, _, _ = phase_pipeline_topk(device, world, TOPK_FRAMES, LAPS)
+        emit(topk)
+        mesh, got = phase_mesh(device, world, topk_engine)
+        topk_engine.close()
+        emit(mesh)
+        launches = {k: launches[k] + got[k] for k in launches}
+    if "calib" in phases:
+        emit(phase_calib(device))
+    entries = [kernel_entry("K1 score_topk (K=1)", "cerebro_tpu_torch/csrc/score_topk.cu",
+                            "cerebro_tpu/ops/similarity.py:98", launches["K1"], max(errs), k1["shapes"][0]),
+               k3_entry(k3, launches["K3"])]
+    if phases != ["calib"]:  # the calibration tools launch no kernel
+        check(all(e["launches"] > 0 for e in entries), "a kernel of these phases never launched")
+        emit({"kernels": entries})
     return finish(smi)
 
 

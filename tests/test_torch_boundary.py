@@ -52,6 +52,14 @@ import cerebro_tpu_torch.train.optim
 import cerebro_tpu_torch.utils.precision
 import cerebro_tpu_torch.models.keypoints
 import cerebro_tpu_torch.pretrain_synthetic
+import cerebro_tpu_torch.run_synthetic
+import cerebro_tpu_torch.parallel
+import cerebro_tpu_torch.parallel.mesh
+import cerebro_tpu_torch.parallel.multihost
+import cerebro_tpu_torch.parallel.sharded_search
+import cerebro_tpu_torch.posegraph.distributed
+import cerebro_tpu_torch.geometry.calibration
+import cerebro_tpu_torch.geometry.chessboard
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "cerebro_tpu" or m.startswith("cerebro_tpu."))
@@ -122,7 +130,10 @@ def test_sources_import_no_jax_or_reference_package():
     sources = [os.path.relpath(p, REPO) for p in _port_sources()]
     for mod in (("native", "__init__.py"), ("train", "loss.py"), ("train", "trainer.py"),
                 ("train", "optim.py"), ("utils", "precision.py"), ("models", "keypoints.py"),
-                ("pretrain_synthetic.py",)):
+                ("pretrain_synthetic.py",), ("run_synthetic.py",), ("parallel", "mesh.py"),
+                ("parallel", "multihost.py"), ("parallel", "sharded_search.py"),
+                ("posegraph", "distributed.py"), ("geometry", "calibration.py"),
+                ("geometry", "chessboard.py")):
         assert os.path.join("cerebro_tpu_torch", *mod) in sources
 
 
@@ -174,3 +185,45 @@ def test_config_defaults_match_reference(name):
     assert dataclasses.asdict(getattr(tcfg, name)()) == dataclasses.asdict(
         getattr(jcfg, name)()
     )
+
+
+def test_every_module_of_the_jax_package_has_a_counterpart():
+    """The port's module list is complete: every module of cerebro_tpu has
+    one of the same path under cerebro_tpu_torch (the Pallas K3's is
+    ops/stereo_kernel.py, the CUDA kernel's wrapper), except
+    runtime/compile_cache.py (eager PyTorch compiles nothing)."""
+    def modules(pkg):
+        root = os.path.join(REPO, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) if "_build" not in d for f in files if f.endswith(".py")}
+
+    renamed = {os.path.join("ops", "stereo_pallas.py"): os.path.join("ops", "stereo_kernel.py")}
+    port = modules("cerebro_tpu_torch")
+    missing = {m for m in modules("cerebro_tpu") if renamed.get(m, m) not in port}
+    assert missing == {os.path.join("runtime", "compile_cache.py")}, missing
+
+
+@pytest.mark.skipif(__import__("torch").cuda.is_available(), reason="checks the no-CUDA path")
+def test_entry_points_need_cuda_or_the_cpu(tmp_path):
+    """Without CUDA, an entry point raises unless asked for the CPU: no
+    fallback hides the device."""
+    import numpy as np
+
+    from cerebro_tpu_torch import run_synthetic
+    from cerebro_tpu_torch.geometry import calibration, cameras, chessboard, stereo
+    from cerebro_tpu_torch.parallel.multihost import init_multihost
+
+    with pytest.raises(RuntimeError, match="--cpu|device='cpu'"):
+        run_synthetic.main(["--out", str(tmp_path / "rs")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_multihost("127.0.0.1:1", 1, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        chessboard.detect_chessboard(np.zeros((64, 64), np.float32), (3, 3))
+    board = np.zeros((4, 2), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calibration.calibrate_planar(board, np.zeros((3, 4, 2), np.float32))
+    cam = cameras.make_pinhole(300.0, 300.0, 32.0, 24.0)
+    rig = stereo.RectifiedRig(R0=np.eye(3), R1=np.eye(3), fx=300.0, fy=300.0, cx=32.0, cy=24.0,
+                              baseline=0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stereo.rectify_map(cam, np.eye(3), rig, (48, 64))

@@ -585,3 +585,73 @@ def test_detect_keypoints_on_the_card_matches_the_cpu(cuda):
     v, i = vals.cpu().numpy(), idx.cpu().numpy()
     order = np.lexsort((i, -v))
     assert (order == np.arange(len(v))).all()
+
+
+# ---------------------------------------------------------------------------
+# The mesh's n-shard merge (parallel/sharded_search.py) on the card: one
+# card takes one rank, so the n-shard search is held in one process: K1 and
+# K2 on 4 row blocks of one DB, merged by the merge functions the ranks use
+# ---------------------------------------------------------------------------
+
+
+def _planted_ring(cuda, N=29184, D=8192, Q=8):
+    """A wrapped ring (gid != row) of unit bf16 rows; query q is a copy of
+    row rows[q]; query 1's row has an exact twin in the last block (a tie
+    across blocks, won by the lower row); query 0 sees no row."""
+    g = torch.Generator(device=cuda).manual_seed(29)
+    db = torch.nn.functional.normalize(torch.randn((N, D), generator=g, device=cuda), dim=1)
+    db = db.to(torch.bfloat16)
+    rows = [5, 100, 7296, 14591, 14592, 21887, 25000, N - 1]  # across the 4 blocks' edges
+    db[N - 3] = db[rows[1]]
+    gids = ((torch.arange(N, device=cuda) + N // 3) % N).to(torch.int32)
+    lim = torch.full((Q,), N, dtype=torch.int32, device=cuda)
+    lim[0] = 0
+    return db[rows].float(), db, lim, gids
+
+
+@pytest.mark.parametrize("k", [None, 1, 3, 5])
+def test_four_block_merge_equals_one_call(cuda, k):
+    from cerebro_tpu_torch.parallel import merge_argmax, merge_topk
+
+    q, db, lim, gids = _planted_ring(cuda)
+    rows = db.shape[0] // 4
+    blocks = [slice(i * rows, (i + 1) * rows) for i in range(4)]
+    if k is None:  # K1
+        parts = [sim.max_and_argmax_cuda(q, db[b], lim, gids[b]) for b in blocks]
+        m, a = merge_argmax(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+        pm, pa = sim.max_and_argmax_cuda(q, db, lim, gids)
+        assert int(a[1]) == int(gids[100])  # the tie across blocks: the lower row
+        assert int(a[0]) == int(gids[0]) and bool(m[0] == sim.NEG_INF)
+    else:  # K2, one top-k call per block
+        parts = [sim.search_topk_cuda(q, db[b], lim, gids[b], k=k) for b in blocks]
+        m, a = merge_topk(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]), k)
+        pm, pa = sim.search_topk_cuda(q, db, lim, gids, k=k)
+    assert torch.equal(a, pa)
+    assert torch.equal(m, pm)
+
+
+def test_mesh_of_one_rank_on_the_card_is_the_plain_call(cuda):
+    """sharded_max_and_argmax and sharded_topk over a 1-rank NCCL group:
+    the unsharded kernels' answers."""
+    import socket
+
+    import torch.distributed as dist
+
+    from cerebro_tpu_torch.parallel import make_mesh, sharded_max_and_argmax, sharded_topk
+    from cerebro_tpu_torch.parallel.multihost import init_multihost
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_multihost(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh()
+        q, db, lim, gids = _planted_ring(cuda)
+        m, a = sharded_max_and_argmax(q, db, lim, gids, mesh)
+        pm, pa = sim.max_and_argmax_cuda(q, db, lim, gids)
+        assert torch.equal(a, pa) and torch.equal(m, pm)
+        v, g = sharded_topk(q, db, lim, gids, mesh, k=3)
+        pv, pg = sim.search_topk_cuda(q, db, lim, gids, k=3)
+        assert torch.equal(g, pg) and torch.equal(v, pv)
+    finally:
+        dist.destroy_process_group()

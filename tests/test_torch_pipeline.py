@@ -17,6 +17,7 @@ frames 2..5 revisited).
   synthworld survey with a kidnap and the camera mounted nadir
   (body_T_cam): the same trajectory."""
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -194,13 +195,25 @@ def test_settings_not_ported_raise(tmp_path, stream, change):
     tp.close()
 
 
-def test_runtime_paths_not_ported_raise(tmp_path):
-    """A mesh is the one setting still not ported; a depth image is
-    (tests/test_torch_depth.py)."""
-    cfg = _base_cfg(tmp_path)
-    with pytest.raises(NotImplementedError):
-        CerebroPipeline(cfg, rig=TRIG, mesh=object(), device="cpu")
-    pipe = CerebroPipeline(cfg, rig=TRIG, device="cpu")
+def test_runtime_paths_not_ported_raise(tmp_path, stream):
+    """Every runtime setting runs (the name is kept from when a mesh
+    raised): a mesh of one rank gives the unsharded pipeline's candidates
+    and score history (gist, tests/test_pipeline.py's config), and a depth
+    image is stored (tests/test_torch_depth.py covers its verification)."""
+    from test_torch_parallel import one_rank_mesh
+
+    runs = []
+    for use_mesh in (False, True):
+        with one_rank_mesh() if use_mesh else contextlib.nullcontext() as mesh:
+            cfg = _port_config(small_config(tmp_path))
+            pipe = CerebroPipeline(cfg, rig=TRIG, mesh=mesh, device="cpu")
+            assert (pipe.mesh is None) == (not use_mesh)
+            _feed(pipe, stream)
+            runs.append((sorted((c.idx_curr, c.idx_prev) for c in pipe.candidates),
+                         list(pipe.score_history)))
+            pipe.close()
+    assert runs[0] == runs[1] and len(runs[0][0]) >= 1
+    pipe = CerebroPipeline(_base_cfg(tmp_path), rig=TRIG, device="cpu")
     img = np.zeros((H, W), np.uint8)
     pipe.ingest_frame(0.0, img, n_tracked=100, depth_img=np.ones((H, W), np.float32))
     assert pipe.images.get("depth", 0) is not None

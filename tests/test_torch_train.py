@@ -20,7 +20,8 @@ cerebro_tpu_torch/pretrain_synthetic.py) against the JAX package's:
   within 1e-4 of its norm plus 1e-6 of the whole's; the converted
   state after one step carries params, ``mu``, ``nu``, ``count`` and
   ``step`` exactly;
-- ``mesh=`` raises ``NotImplementedError`` naming the ROADMAP item;
+- ``mesh=`` at one rank gives the unsharded step's loss and state bit for
+  bit (the data-parallel step across ranks: tests/test_torch_parallel.py);
 - ``fractal_texture`` bit-equal to scripts/run_synthetic.py's;
 - ``python -m cerebro_tpu_torch.pretrain_synthetic --cpu`` at one step
   writes an npz whose names and shapes are the shipped artifact's, which
@@ -280,11 +281,32 @@ def test_convert_train_state_carries_jax_state_exactly(ref):
 
 
 def test_mesh_raises_naming_the_roadmap_item(ref):
+    """``mesh=`` runs (the name is kept from when it raised): the
+    data-parallel step at one rank gives the unsharded step's loss and
+    state, and a batch that does not divide over the ranks raises."""
+    from test_torch_parallel import one_rank_mesh
+
     params = tdesc.convert_params(ref["flat"], _cfg(), "cpu")
+    x, y = torch.from_numpy(ref["imgs"]), torch.from_numpy(LABELS)
     state, tx = create_train_state(params)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1: item 7, parallel/"):
-        train_step(_tnet(), tx, state, torch.from_numpy(ref["imgs"]), torch.from_numpy(LABELS),
-                   mesh=object())
+    plain, loss = train_step(_tnet(), tx, state, x, y)
+    with one_rank_mesh() as mesh:
+        sharded, loss_mesh = train_step(_tnet(), tx, state, x, y, mesh=mesh)
+        assert mesh.shape == {"db": 1}
+    assert torch.equal(loss_mesh, loss)
+    for got, want in ((sharded.params, plain.params), (sharded.opt_state.mu, plain.opt_state.mu)):
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
+
+
+def test_data_parallel_batch_must_divide():
+    from cerebro_tpu_torch.parallel.mesh import Mesh
+    from cerebro_tpu_torch.train.trainer import _data_parallel_grads
+
+    mesh = Mesh(("db",), (3,), (None,), (0,), torch.device("cpu"))
+    with pytest.raises(ValueError, match="divide"):
+        _data_parallel_grads(_tnet(), {}, torch.zeros((8, 64, 64, 1), dtype=torch.uint8),
+                             torch.from_numpy(LABELS), mesh, "db")
 
 
 # ---------------------------------------------------------------------------
