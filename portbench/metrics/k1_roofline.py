@@ -1,0 +1,8 @@
+"""k1_roofline: K1 (score_topk at K = 1) in the profiled slice, its least time
+(the filled DB rows it scans read once at 3.35 TB/s) over its device time."""
+
+from portbench.readers import kernel_roofline, score_topk_bound
+
+
+def read(ctx):
+    return kernel_roofline(ctx, "K1", ("score_topk_partial", "score_topk_merge"), score_topk_bound)
