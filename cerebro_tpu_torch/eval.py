@@ -11,6 +11,7 @@ cerebro_tpu/eval.py).
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from typing import Iterable, Optional
 
@@ -70,10 +71,23 @@ def run_sequence(
     (``verify_pending`` with the pipeline's own VerifyConfig, the cascade
     included). With ``trace_dir`` the run is traced by torch.profiler (host
     operators, and CUDA activity for a CUDA pipeline) and written there as
-    a Chrome ``*.trace.json``."""
+    a Chrome ``*.trace.json``; the pipeline's timer traces meanwhile, so
+    the trace holds its spans (``cerebro.<stage>``) over the kernels each
+    launched, and the timer's ``export()`` (its spans with their ids,
+    parents, attributes and the keyframe and candidate events, its
+    counters and per-stage totals) is written beside it as
+    ``*.spans.json``."""
     if trace_dir is not None:
-        with device_trace(trace_dir, cuda=pipe.device.type == "cuda"):
-            return run_sequence(pipe, frames, n_tracked_default, verify, max_frames, None)
+        was = pipe.timer.trace
+        pipe.timer.trace = True
+        try:
+            with device_trace(trace_dir, cuda=pipe.device.type == "cuda") as path:
+                report = run_sequence(pipe, frames, n_tracked_default, verify, max_frames, None)
+            with open(path[: -len(".trace.json")] + ".spans.json", "w") as f:
+                json.dump(pipe.timer.export(), f)
+            return report
+        finally:
+            pipe.timer.trace = was
     timer = StageTimer()
     n = 0
     t0 = time.perf_counter()
@@ -99,7 +113,7 @@ def run_sequence(
     return RunReport(
         n_frames=st["frames"],
         n_keyframes=st["keyframes"],
-        n_candidates=st["pending_candidates"],
+        n_candidates=len(pipe.candidates),
         n_loop_edges=st["loop_edges"],
         keyframes_per_s=st["described"] / max(wall, 1e-9),
         timings=timer.stats(),

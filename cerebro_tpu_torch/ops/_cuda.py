@@ -10,7 +10,9 @@ only ever take their plain PyTorch versions.
 A launch function runs on the caller's stream (``torch.cuda.current_stream``),
 allocates nothing, and returns ``cudaGetLastError()``; ``Kernel.launch``
 raises if that is not zero. Several ``Kernel`` handles may share one source
-(and so one library), each with its own launch count.
+(and so one library), each with its own launch count. While the pipeline's
+timer traces, each launch is a span ``kernel.<function>`` carrying its
+integer arguments (the shapes) as ``shape``.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ from pathlib import Path
 from typing import Dict, Sequence
 
 import torch
+
+from cerebro_tpu_torch.utils import timing
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -110,7 +114,11 @@ class Kernel:
         CUDA stream; raise if the launch reports an error."""
         fn = getattr(self._load(), name)
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*args, stream)
+        with timing.span("kernel." + name) as sp:
+            if sp.id:
+                types = self.functions[name]
+                sp.set(shape=tuple(a for a, t in zip(args, types) if t is ctypes.c_int))
+            err = fn(*args, stream)
         if err != 0:
             raise RuntimeError(
                 f"{self.source.name}:{name} failed with CUDA error {err}"

@@ -30,7 +30,10 @@ JAX ``while_loop``'s condition), so the iterations run are the same as
 JAX's. Everything stays on the caller's device, in the type of the states
 (f32 from the pipeline). J^T sums each node's edge rows in one fixed order
 (``_NodeSum``: a padded gather and a sum, no atomics), so a solve gives the
-same bits on every run, as the JAX solve does.
+same bits on every run, as the JAX solve does. The pipeline's counters
+``solve.gn_steps`` and ``solve.cg_iters`` count the steps and iterations;
+while its timer traces, each step is a ``solve.gn`` span holding
+``solve.linearize`` and ``solve.cg`` (with the iterations it ran).
 
 Graph assembly helpers (``relative_yaw_t_np``, ``initialize_worlds``) are
 host numpy, as in the JAX package.
@@ -46,6 +49,7 @@ import torch
 
 from cerebro_tpu_torch.config import PoseGraphConfig
 from cerebro_tpu_torch.geometry import se3
+from cerebro_tpu_torch.utils import timing
 
 CG_TOL = 1e-5  # jax.scipy.sparse.linalg.cg's default tol (atol = 0)
 
@@ -271,17 +275,17 @@ def _vdot(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]) -> torch.Tenso
     return sum((a[k] * b[k]).sum() for k in sorted(a))
 
 
-def _cg(matvec, b: Dict[str, torch.Tensor], maxiter: int) -> Dict[str, torch.Tensor]:
+def _cg(matvec, b: Dict[str, torch.Tensor], maxiter: int):
     """jax.scipy.sparse.linalg.cg(matvec, b, maxiter=maxiter) with x0 = 0
-    (so r0 = b), tol = 1e-5, atol = 0 and no preconditioner."""
+    (so r0 = b), tol = 1e-5, atol = 0 and no preconditioner. Returns the
+    solution and the iterations run."""
     atol2 = CG_TOL**2 * _vdot(b, b)
     x = {k: torch.zeros_like(v) for k, v in b.items()}
     r = dict(b)
     p = dict(b)
     gamma = _vdot(r, r)
-    for _ in range(maxiter):
-        if not bool(gamma > atol2):
-            break
+    iters = 0
+    while iters < maxiter and bool(gamma > atol2):
         Ap = matvec(p)
         alpha = gamma / _vdot(p, Ap)
         x = {k: x[k] + alpha * p[k] for k in x}
@@ -290,7 +294,8 @@ def _cg(matvec, b: Dict[str, torch.Tensor], maxiter: int) -> Dict[str, torch.Ten
         beta = gamma_new / gamma
         p = {k: r[k] + beta * p[k] for k in p}
         gamma = gamma_new
-    return x
+        iters += 1
+    return x, iters
 
 
 def optimize(
@@ -322,15 +327,21 @@ def gauss_newton(graph: PoseGraph, edges: PoseGraph, cfg: PoseGraphConfig,
     keep = torch.cat([edges.odo_valid, edges.odo_valid, edges.loop_valid, edges.loop_valid])
     node_sum = _NodeSum(nodes, keep, x0.shape[0])
     for _ in range(cfg.max_gn_iters):
-        lin = _Linearized(params, edges, cfg, node_sum, loops, gauge)
+        with timing.span("solve.gn"):
+            with timing.span("solve.linearize"):
+                lin = _Linearized(params, edges, cfg, node_sum, loops, gauge)
+                g = reduce(lin.jt(lin.r))
 
-        def jtj_matvec(v, lin=lin):
-            jtv = reduce(lin.jt(lin.j(v)))
-            return {k: jtv[k] + cfg.damping * v[k] for k in v}
+            def jtj_matvec(v, lin=lin):
+                jtv = reduce(lin.jt(lin.j(v)))
+                return {k: jtv[k] + cfg.damping * v[k] for k in v}
 
-        g = reduce(lin.jt(lin.r))
-        dx = _cg(jtj_matvec, {k: -v for k, v in g.items()}, cfg.cg_iters)
-        params = {k: params[k] + dx[k] for k in params}
+            with timing.span("solve.cg") as sp:
+                dx, iters = _cg(jtj_matvec, {k: -v for k, v in g.items()}, cfg.cg_iters)
+                sp.set(iters=iters)
+            timing.count("solve.gn_steps")
+            timing.count("solve.cg_iters", iters)
+            params = {k: params[k] + dx[k] for k in params}
     cost = reduce({"cost": _Linearized(params, edges, cfg, loops=loops, gauge=gauge).cost()})
     return params["x"], torch.sigmoid(params["s_logit"]), cost["cost"]
 

@@ -16,9 +16,9 @@ either of them died of, drains the remaining work, and an optional
 ``save_dir`` checkpoints the map for teach and repeat.
 
 Both threads share the interpreter lock and the CUDA device's default
-stream. Monitoring should sample host counters (``ingest.engine.pending``,
-``len(pipeline.loop_edges)``): ``status()`` reads the device's detection
-results back and waits for queued device work.
+stream. ``status()`` reads host counters only (the pipeline's timer
+counters among them: ``verify_queue``, ``undrained_batches``), so a
+monitoring thread may call it without waiting on the device.
 """
 
 from __future__ import annotations

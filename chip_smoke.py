@@ -1877,7 +1877,7 @@ def phase_live(device, stream_s: float):
         svc.push_image(10**6 * ns_per_s, np.zeros_like(frames[0][0]))  # release the hold window
 
     def monitor():
-        # host counters only: status() would read device results back
+        # host counters only
         while th.is_alive():
             backlog.append(svc.ingest.engine.pending + len(pipe._pending_desc))
             edges_timeline.append(len(pipe.loop_edges))

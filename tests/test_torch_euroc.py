@@ -228,6 +228,25 @@ def test_run_euroc_trace_writes_a_trace_file(gist_run):
         assert json.load(f)["traceEvents"]
 
 
+def test_run_euroc_trace_writes_the_programs_spans(gist_run):
+    """Beside the Chrome trace: the timer's export, with the pipeline's
+    stages as nested spans, the keyframe events and its counters."""
+    r, _, trace = gist_run
+    assert r.returncode == 0, r.stderr[-3000:]
+    files = [f for f in os.listdir(trace) if f.endswith(".spans.json")]
+    assert len(files) == 1, os.listdir(trace)
+    with open(os.path.join(trace, files[0])) as f:
+        ex = json.load(f)
+    spans = [dict(zip(ex["span_fields"], s)) for s in ex["spans"]]
+    names = {s["name"] for s in spans}
+    assert {"describe", "detect", "kf.queued", "kf.described"} <= names, names
+    ids = {s["id"] for s in spans}
+    assert all(s["parent"] == 0 or s["parent"] in ids for s in spans)
+    assert all(s["t0_ns"] <= s["t1_ns"] for s in spans)
+    described = [s for s in spans if s["name"] == "kf.described"]
+    assert ex["counters"]["keyframes.described"] == len(described) > 0
+
+
 def test_run_euroc_netvlad_names_its_roadmap_item(tmp_path):
     """``--descriptor netvlad`` (the seeded in-framework net, once a
     ROADMAP item, now ported) through both packages' run_euroc on the mini

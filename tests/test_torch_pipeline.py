@@ -83,10 +83,10 @@ def _spy_passes(pipe):
     banks, whether failures may escalate, the (curr, prev) pairs)."""
     seen, real = [], pipe._verify_chunks
 
-    def chunks(loadable, vcfg, device_batch, escalate=None):
+    def chunks(loadable, vcfg, device_batch, escalate=None, **kw):  # the port's tier=
         pairs = [(c.idx_curr, c.idx_prev) for c, _ in loadable]
         seen.append((vcfg.matcher, tuple(vcfg.scale_banks), escalate is not None, pairs))
-        return real(loadable, vcfg, device_batch, escalate=escalate)
+        return real(loadable, vcfg, device_batch, escalate=escalate, **kw)
 
     pipe._verify_chunks = chunks
     return seen
@@ -583,17 +583,19 @@ def test_warmup_keys_match_jax(tmp_path):
     jcfg = small_config(tmp_path / "j")
     jp = JPipeline(jcfg, rig=make_rig())
     tp = CerebroPipeline(_port_config(jcfg), rig=TRIG, device="cpu")
-    calls = {}
+    calls, tiers = {}, []
     for name, pipe in (("jax", jp), ("torch", tp)):
         seen = calls[name] = []
         pipe._verify_chunks = (
-            lambda loadable, vcfg, device_batch, escalate=None, seen=seen:
-            seen.append((vcfg.matcher, len(loadable), device_batch)) or 0
+            lambda loadable, vcfg, device_batch, escalate=None, seen=seen, **t:
+            seen.append((vcfg.matcher, len(loadable), device_batch)) or tiers.append(t) or 0
         )
     want, got = jp.warmup(**kw), tp.warmup(**kw)
     assert set(got) == set(want)
     assert calls["torch"] == calls["jax"] == [
         (m, n, n) for m in ("steerable", "gather") for n in (1, 2, 8)
     ]
+    # the port's warm calls carry their cascade tier (the JAX package's none)
+    assert tiers == [{}] * 6 + [{"tier": t} for t in (1, 2) for _ in range(3)]
     assert got["total"] >= max(v for k, v in got.items() if k != "total")
     tp.close()
