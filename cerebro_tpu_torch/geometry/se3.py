@@ -20,7 +20,9 @@ def make_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    # the row (0, 0, 0, 1) filled on the device: nothing copied from the host
+    bottom = torch.zeros((1, 4), dtype=R.dtype, device=R.device)
+    bottom[0, 3].fill_(1.0)
     return torch.cat([top, bottom.expand(batch + (1, 4))], dim=-2)
 
 

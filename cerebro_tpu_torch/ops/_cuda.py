@@ -10,7 +10,11 @@ only ever take their plain PyTorch versions.
 A launch function runs on the caller's stream (``torch.cuda.current_stream``),
 allocates nothing, and returns ``cudaGetLastError()``; ``Kernel.launch``
 raises if that is not zero. Several ``Kernel`` handles may share one source
-(and so one library), each with its own launch count. While the pipeline's
+(and so one library), each with its own launch counts. A launch made while a
+CUDA graph is captured under ``captured_launches`` only records the kernel
+into the graph; whoever replays the graph adds the tally to
+``Kernel.replayed`` (``replay_launches``), so ``Kernel.runs`` counts the
+kernel's runs on the device, replays included. While the pipeline's
 timer traces, each launch is a span ``kernel.<function>`` carrying its
 integer arguments (the shapes) as ``shape``.
 """
@@ -24,6 +28,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -39,6 +44,8 @@ NVCC_FLAGS = (
 )
 # Handles on one source build its library once, whichever asks first.
 _BUILD_LOCK = threading.Lock()
+# The tally of the graph capture running on this thread, if any.
+_CAPTURE = threading.local()
 
 
 def _nvcc() -> str:
@@ -53,16 +60,28 @@ class Kernel:
 
     ``functions`` maps each exported name to its ctypes argument types
     (``c_void_p`` for every pointer and the stream, ``c_int`` for ints).
-    ``launches`` counts the launches made through ``launch``; callers that
-    check which kernels a run went through reset and read it."""
+    ``launches`` counts the launches made through ``launch`` (host calls);
+    ``captured`` those of them recorded into a CUDA graph, which did not run
+    then, and ``replayed`` the runs of recorded launches by replays. Callers
+    that check which kernels a run went through reset and read them."""
 
     def __init__(self, source: str, functions: Dict[str, Sequence]):
         self.source = CSRC / source
         self.functions = dict(functions)
         self.launches = 0
+        self.captured = 0
+        self.replayed = 0
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
+
+    @property
+    def runs(self) -> int:
+        """The kernel's runs on the device: eager launches and replays."""
+        return self.launches - self.captured + self.replayed
+
+    def reset(self):
+        self.launches = self.captured = self.replayed = 0
 
     @property
     def library(self) -> Path:
@@ -124,6 +143,28 @@ class Kernel:
                 f"{self.source.name}:{name} failed with CUDA error {err}"
             )
         self.launches += 1
+        tally = getattr(_CAPTURE, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + 1
+            self.captured += 1
+
+
+@contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture on this thread: yields a dict that
+    fills with each kernel's launches recorded into the graph."""
+    outer = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = {}
+    try:
+        yield _CAPTURE.tally
+    finally:
+        _CAPTURE.tally = outer
+
+
+def replay_launches(tally: dict):
+    """Count one replay of a graph whose capture gave ``tally``."""
+    for k, n in tally.items():
+        k.replayed += n
 
 
 def build_all(kernels: Sequence[Kernel]) -> float:

@@ -51,6 +51,13 @@ def _conv2(img: torch.Tensor, kern: torch.Tensor) -> torch.Tensor:
     return F.conv2d(img[None, None], kern[None, None], padding=(kh // 2, kw // 2))[0, 0]
 
 
+@functools.lru_cache(maxsize=8)
+def _sobel_x(device: torch.device) -> torch.Tensor:
+    """The Sobel x filter on ``device``, made once per process and device:
+    nothing is copied from the host on later calls."""
+    return torch.tensor(_SOBEL_X, dtype=torch.float32, device=device)
+
+
 def _box_filter(img: torch.Tensor, size: int) -> torch.Tensor:
     ones_v = torch.ones((1, 1, size, 1), dtype=img.dtype, device=img.device)
     ones_h = torch.ones((1, 1, 1, size), dtype=img.dtype, device=img.device)
@@ -82,7 +89,7 @@ def harris_corners(
     """Harris corner top-K with max-pool NMS. Plays the role of the
     reference's ORB/FAST detector (src/utils/PointFeatureMatching.cpp:21)."""
     H, W = img.shape
-    sobel_x = torch.tensor(_SOBEL_X, dtype=torch.float32, device=img.device)
+    sobel_x = _sobel_x(img.device)
     gx = _conv2(img, sobel_x)
     gy = _conv2(img, sobel_x.T.contiguous())
     gxx = _box_filter(gx * gx, 5)
@@ -209,8 +216,11 @@ def _extract_oriented_patches(
     half = (patch - 1) / 2.0
     o = torch.arange(patch, dtype=torch.float32, device=dev) - half
     gy, gx = torch.meshgrid(o, o, indexing="ij")  # (p, p)
-    sc = torch.as_tensor(scale, dtype=torch.float32, device=dev)
-    sc = sc[:, None, None] if sc.ndim == 1 else sc
+    if isinstance(scale, (int, float)):
+        sc = float(scale)  # stays on the host: nothing copied to the device
+    else:
+        sc = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+        sc = sc[:, None, None] if sc.ndim == 1 else sc
     gx = gx[None] * sc
     gy = gy[None] * sc
     c, s = torch.cos(theta)[:, None, None], torch.sin(theta)[:, None, None]

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from cerebro_tpu_torch.geometry import se3
+from cerebro_tpu_torch.ops import small_eig
 
 
 def _build_dlt_rows(X: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -108,9 +109,11 @@ def pnp_dlt(
     """Weighted DLT PnP: returns b_T_a (..., 4, 4) with x ~ project(R X + t).
 
     Hartley-normalize both point sets, take the smallest eigenvector of
-    A^T W A (12x12; ``exact`` uses eigh, otherwise inverse iteration, the
-    RANSAC hypothesis path), un-normalize, fix sign by cheirality (weighted
-    mean depth positive), then project the 3x3 block onto SO(3)."""
+    A^T W A (12x12; ``exact`` solves the eigenproblem, otherwise inverse
+    iteration, the RANSAC hypothesis path), un-normalize, fix sign by
+    cheirality (weighted mean depth positive), then project the 3x3 block
+    onto SO(3). The exact path's eigenvector and SVD are ``small_eig``'s:
+    ``torch.linalg`` on the CPU, the kernel on the card."""
     wsum = torch.clamp(w.sum(-1), min=1e-9)
     wn = w / wsum[..., None]
 
@@ -128,7 +131,7 @@ def pnp_dlt(
     ww = w.repeat_interleave(2, dim=-1)
     M = (A * ww[..., None]).transpose(-1, -2) @ A  # (..., 12, 12)
     if exact:
-        p = torch.linalg.eigh(M)[1][..., :, 0]  # smallest eigenvalue
+        p = small_eig.smallest_eigvec(M)
     else:
         p = _smallest_eigvec_iter(M)
     Pn = p.reshape(p.shape[:-1] + (3, 4))
@@ -140,11 +143,11 @@ def pnp_dlt(
     T2inv[..., 1, 1] = 1.0 / s2
     T2inv[..., 0, 2] = c2[..., 0]
     T2inv[..., 1, 2] = c2[..., 1]
-    T2inv[..., 2, 2] = 1.0
+    T2inv[..., 2, 2].fill_(1.0)  # a fill on the device: assigning a number copies it from the host
     T3 = torch.zeros(batch + (4, 4), dtype=X.dtype, device=X.device)
     T3[..., :3, :3] = torch.eye(3, dtype=X.dtype, device=X.device) * s3[..., None, None]
     T3[..., :3, 3] = -s3[..., None] * c3
-    T3[..., 3, 3] = 1.0
+    T3[..., 3, 3].fill_(1.0)
     P = T2inv @ Pn @ T3
     Rraw, t_raw = P[..., :3], P[..., 3]
 
@@ -154,8 +157,8 @@ def pnp_dlt(
     t_raw = t_raw * sign[..., None]
 
     if exact:
-        U, S, Vt = torch.linalg.svd(Rraw)
-        d = torch.sign(torch.linalg.det(U @ Vt))
+        U, S, Vt = small_eig.svd3(Rraw)
+        d = torch.sign(small_eig.det3(U @ Vt))
         diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
         R = U @ torch.diag_embed(diag) @ Vt
         scale = (S * diag).sum(-1) / 3.0
@@ -163,7 +166,7 @@ def pnp_dlt(
         R, scale = _polar_rotation(Rraw)
         # a reflection (det<0) is a degenerate hypothesis: poison the pose
         # so RANSAC's finite/inlier guards drop it
-        bad = torch.linalg.det(R) < 0.0
+        bad = small_eig.det3(R) < 0.0
         R = torch.where(bad[..., None, None], torch.full_like(R, float("nan")), R)
     t = t_raw / torch.clamp(scale, min=1e-12)[..., None]
     return se3.make_pose(R, t)
@@ -204,7 +207,7 @@ def pnp_refine_gn(
     batched replacement for the reference's ceres refinement
     (src/DlsPnpWithRansac.cpp:253-340). The Jacobian of the weighted
     residual under a left perturbation exp(xi) T is written out: d Pc /
-    d(v, w) = [I, -hat(Pc)]."""
+    d(v, w) = [I, -hat(Pc)]. The 6x6 step is ``small_eig.spd_solve``."""
     T = T0
     eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
     for _ in range(iters):
@@ -227,6 +230,6 @@ def pnp_refine_gn(
         J = J.reshape(-1, 6)
         H = J.T @ J + damping * eye6
         g = J.T @ r
-        dx = -torch.linalg.solve(H, g)
+        dx = -small_eig.spd_solve(H, g)
         T = se3.se3_exp(dx) @ T
     return T

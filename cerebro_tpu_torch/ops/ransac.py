@@ -74,18 +74,21 @@ def _run(
     finite = torch.isfinite(Ts.reshape(n_hyp, -1)).all(1)
     counts = torch.where(finite, counts, torch.zeros_like(counts))
 
-    best = counts.argmax()  # first maximum
-    best_inl = inl[best]
+    # the first maximum, as a one-element index: indexing by a 0-d tensor
+    # reads it back to the host
+    best = counts.argmax().reshape(1)
+    best_inl = inl[best][0]
+    best_count = counts[best][0]
 
     # refit on the best inlier set (weighted least squares), then rescore
     T_ref = refit(best_inl.to(A.dtype))
     ref_inl = (error_fn(T_ref) < inlier_thresh) & valid
     ref_count = ref_inl.to(torch.int32).sum()
 
-    use_ref = torch.isfinite(T_ref).all() & (ref_count >= counts[best])
-    T_best = torch.where(use_ref, T_ref, Ts[best])
+    use_ref = torch.isfinite(T_ref).all() & (ref_count >= best_count)
+    T_best = torch.where(use_ref, T_ref, Ts[best][0])
     inl_best = torch.where(use_ref, ref_inl, best_inl)
-    cnt_best = torch.where(use_ref, ref_count, counts[best])
+    cnt_best = torch.where(use_ref, ref_count, best_count)
 
     conf = cnt_best.float() / torch.clamp(n_valid, min=1).float()
     success = (n_valid >= min_points) & (conf >= min_inlier_ratio) & torch.isfinite(T_best).all()

@@ -62,6 +62,14 @@ def ring_basis(
     return re.astype(np.float32), im.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _ring_basis_on(spacing: float, n_rad: int, n_ang: int, device: torch.device):
+    """``ring_basis`` as tensors on ``device``, copied there once per process
+    and device."""
+    re, im = ring_basis(spacing, n_rad, n_ang)
+    return torch.from_numpy(re).to(device), torch.from_numpy(im).to(device)
+
+
 def extract_superpatches(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
     """(K, S, S) contiguous patches centered on integer coords, with the
     start semantics of the reference's ``lax.dynamic_slice``: a negative
@@ -93,10 +101,10 @@ def features_from_superpatches(
     n_ang: int = 8,
 ) -> torch.Tensor:
     """(K, n_rad, n_ang, 2) normalized steerable coefficients."""
-    re, im = ring_basis(spacing, n_rad, n_ang)
+    re, im = _ring_basis_on(spacing, n_rad, n_ang, patches.device)
     flat = patches.reshape(patches.shape[0], S * S)
-    cr = flat @ torch.from_numpy(re).to(flat.device)
-    ci = flat @ torch.from_numpy(im).to(flat.device)
+    cr = flat @ re
+    ci = flat @ im
     c = torch.stack([cr, ci], dim=-1).reshape(-1, n_rad, n_ang, 2)
     n = torch.sqrt((c * c).sum(dim=(1, 2, 3), keepdim=True))
     return c / torch.clamp(n, min=1e-6)
@@ -113,8 +121,11 @@ def steer(c: torch.Tensor, theta) -> torch.Tensor:
     """Rotate the PATCH CONTENT by ``theta`` in coefficient space:
     c_{r,m} -> c_{r,m} e^{-i m theta}. theta scalar or (K,)."""
     m = torch.arange(c.shape[2], dtype=torch.float32, device=c.device)
-    theta = torch.as_tensor(theta, dtype=torch.float32, device=c.device)
-    ang = -m[None, :] * theta.reshape(-1, 1)  # (K, M)
+    if isinstance(theta, (int, float)):
+        ang = -m[None, :] * float(theta)  # stays on the host: nothing copied to the device
+    else:
+        theta = torch.as_tensor(theta, dtype=torch.float32, device=c.device)
+        ang = -m[None, :] * theta.reshape(-1, 1)  # (K, M)
     cos = torch.cos(ang)[:, None, :, None]
     sin = torch.sin(ang)[:, None, :, None]
     cr, ci = c[..., 0:1], c[..., 1:2]

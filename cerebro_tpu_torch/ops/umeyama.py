@@ -5,7 +5,8 @@ Behavioral equivalent of the reference's
 ``AlignPointCloudsUmeyama(WithRansac)`` (src/DlsPnpWithRansac.h:117-166):
 find R, t minimizing sum_i w_i || q_i - (R p_i + t) ||^2 in closed form,
 and report the residual scale for the reference's sanity gate. Broadcasts
-over leading batch axes (RANSAC hypotheses).
+over leading batch axes (RANSAC hypotheses). The SVD and determinants are
+``ops.small_eig``'s: ``torch.linalg`` on the CPU, the kernel on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Tuple
 import torch
 
 from cerebro_tpu_torch.geometry import se3
+from cerebro_tpu_torch.ops import small_eig
 
 
 def umeyama_rigid(
@@ -30,8 +32,8 @@ def umeyama_rigid(
     sc = src - mu_s[..., None, :]
     dc = dst - mu_d[..., None, :]
     H = (wn[..., None] * dc).transpose(-1, -2) @ sc  # sum_i w_i dc_i sc_i^T
-    U, S, Vt = torch.linalg.svd(H)
-    d = torch.sign(torch.linalg.det(U) * torch.linalg.det(Vt))
+    U, S, Vt = small_eig.svd3(H)
+    d = torch.sign(small_eig.det3(U) * small_eig.det3(Vt))
     diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     R = U @ torch.diag_embed(diag) @ Vt
     t = mu_d - (R @ mu_s[..., None])[..., 0]

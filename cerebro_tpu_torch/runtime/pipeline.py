@@ -15,7 +15,8 @@ cerebro_tpu/runtime/pipeline.py).
     verify_pending()          (ref loopcandiate_consumer_thread @1 Hz)
       tier-1 verification (kernel K3 for depth) -> LoopEdge; pairs that
       fail for lack of matches escalate to the tier-2 gather matcher;
-      a depth camera's pairs verify from their depth images (no K3)
+      a depth camera's pairs verify from their depth images (no K3); on
+      the card each pair's body replays as a CUDA graph (VerifyGraphs)
     optimize_trajectory()     (ref external solve_keyframe_pose_graph)
       4-DOF switch-constrained pose graph over the keyframes
 
@@ -75,7 +76,9 @@ from cerebro_tpu_torch.posegraph import (
 )
 from cerebro_tpu_torch.utils import timing
 from cerebro_tpu_torch.utils.timing import StageTimer
-from cerebro_tpu_torch.verify.geometric import VerifiedLoop, verify_pair_batch, verify_pair_depth
+from cerebro_tpu_torch.verify.geometric import (
+    GRAPH_COUNTERS, VerifiedLoop, VerifyGraphs, verify_pair_batch, verify_pair_depth,
+)
 
 def _descriptor_state(params, dcfg, device) -> dict:
     """A DescriptorNet state on ``device`` from a PyTorch state (tensors
@@ -255,6 +258,8 @@ class CerebroPipeline:
         self.tier2_accepted = 0
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed + 1)
+        # each verified pair's body as a CUDA graph, replayed on the card
+        self._verify_graphs = VerifyGraphs(self._generator)
         # guards the deferred-detection drain + candidate queue when a
         # verifier thread consumes what the ingest thread detects
         self._det_lock = threading.RLock()
@@ -346,7 +351,10 @@ class CerebroPipeline:
         size, if larger), rounded up to a multiple of 8: the port's appends
         work in place, so the live ring is never appended to. The detection
         carries, the verification generator's state, the edge and rejection
-        lists, the cascade counters and the stage timer are put back. (The JAX package's warmup advances its verification
+        lists, the cascade counters and the stage timer are put back, but
+        for the count of verification graphs captured, which serve the live
+        calls after warmup (on the card, each tier's warm pair captures its
+        graph). (The JAX package's warmup advances its verification
         key; the port keeps the contract that a warmed engine and a cold
         one give the same results.)"""
         from cerebro_tpu_torch import native
@@ -370,7 +378,9 @@ class CerebroPipeline:
             list(self.loop_edges), list(self.rejected_candidates),
             self.escalated_to_tier2, self.tier2_accepted,
         )
-        self.timer = StageTimer(window=saved[1].window, sync=saved[1].sync, trace=saved[1].trace)
+        warm_timer = self.timer = StageTimer(
+            window=saved[1].window, sync=saved[1].sync, trace=saved[1].trace
+        )
         try:
             with self.timer.bind():
                 descs = self.describe_fn(
@@ -435,6 +445,10 @@ class CerebroPipeline:
              self.topk_state, self.hyp_table) = carries
             self.loop_edges[:] = edges
             self.rejected_candidates[:] = rejected
+        # the graphs captured here outlive the warm calls: they serve the
+        # live pairs, so their count carries over
+        self.timer.count("verify.graph.captured",
+                         warm_timer.counters().get("verify.graph.captured", 0))
         out["total"] = time.perf_counter() - t_start
         return out
 
@@ -789,7 +803,7 @@ class CerebroPipeline:
                     self.cfg.verify, self._generator,
                     lb, db_,  # frame a := prev
                     la, da,  # frame b := curr
-                    self.rig,
+                    self.rig, graphs=self._verify_graphs,
                 )
             self.timer.count("pairs.verified.depth")
             self.timer.event("cand.verified", cid=cand.cid, group=group.id, tier="depth")
@@ -844,7 +858,7 @@ class CerebroPipeline:
                     vcfg, self._generator,
                     lb, rb,  # frame a := prev
                     la, ra,  # frame b := curr
-                    self.rig,
+                    self.rig, graphs=self._verify_graphs,
                 )
                 self.timer.sync_point(res)
             self.timer.count(f"pairs.verified.tier{tier}", len(chunk))
@@ -1156,8 +1170,9 @@ class CerebroPipeline:
         """Host counters only: safe from a monitoring thread, it waits on no
         device work. Detection results still on the device are counted in
         ``undrained_batches``; ``pending_candidates`` holds those read back
-        (``candidates`` reads the rest)."""
-        counters = self.timer.counters()
+        (``candidates`` reads the rest). ``counters`` always holds the three
+        ``verify.graph.*`` counts, 0 until counted."""
+        counters = {**dict.fromkeys(GRAPH_COUNTERS, 0), **self.timer.counters()}
         return {
             "frames": self.store.size,
             "keyframes": int(self.store.is_keyframe[: self.store.size].sum()),

@@ -24,19 +24,31 @@ Re-implements the reference's ``loopcandiate_consumer_thread`` +
 While the pipeline's timer traces, each group's depth, each pair's
 matching, each RANSAC option and the gates are spans of their own
 (``verify.depth``, ``verify.match``, ``verify.ransac``, ``verify.gates``).
+
+On the card the per-pair body (``verify_from_points``) is a few thousand
+small launches and reads nothing back, so ``VerifyGraphs`` captures it once
+per tier and frame shape as a CUDA graph and replays it for every later
+pair; a replayed pair records none of the inner spans. The counters
+``verify.graph.captured``, ``verify.graph.replayed`` and
+``verify.graph.eager`` (pairs on CUDA tensors verified eagerly; CPU pairs
+count under none) say how often the graph serves.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 import torch
 
 from cerebro_tpu_torch.config import VerifyConfig
 from cerebro_tpu_torch.geometry import se3, stereo
-from cerebro_tpu_torch.ops import features, ransac
+from cerebro_tpu_torch.ops import _cuda, features, ransac
 from cerebro_tpu_torch.utils import timing
+
+
+GRAPH_COUNTERS = ("verify.graph.captured", "verify.graph.replayed", "verify.graph.eager")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +179,89 @@ def verify_from_points(
     )
 
 
+class VerifyGraphs:
+    """``verify_from_points`` captured as one CUDA graph per (tier config,
+    rig, frame shapes and dtypes) and replayed for each later pair: the
+    inputs are copied into the graph's static buffers, the graph replays,
+    and the outputs are copied out. A pair then costs a few host dispatches
+    in place of thousands of eager launches.
+
+    Bound to one generator, which each graph registers: a replay draws
+    RANSAC's samples from the generator's current offset and advances it
+    exactly as an eager call does, so replayed and eager pairs give the same
+    results from the same generator state. The graphs share one memory pool
+    (tiers never replay at once). The first pair of a key is verified
+    eagerly on a side stream, the warm-up PyTorch asks for before a capture,
+    and is that pair's result; the capture follows (``thread_local``: other
+    threads may allocate meanwhile). ``run`` is serialised: the static
+    buffers hold one pair at a time. Each replay adds the hand-written
+    kernels' launches recorded at the capture to their ``Kernel.replayed``."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self._graphs: dict = {}
+        self._pool = None
+        self._lock = threading.Lock()
+
+    def engages(self, generator, left: torch.Tensor, sample_idx) -> bool:
+        """Whether ``run`` serves a pair: CUDA tensors, sampled from this
+        object's generator (not from caller-supplied samples)."""
+        return left.is_cuda and generator is self.generator and all(i is None for i in sample_idx)
+
+    def run(self, cfg: VerifyConfig, rig: stereo.RectifiedRig, *points) -> VerifiedLoop:
+        """``verify_from_points(cfg, generator, *points, rig)`` for
+        ``points`` = (left_a, pts_a, ok_a, left_b, pts_b, ok_b): replayed, or
+        eager and captured at a key's first pair."""
+        key = (cfg, rig.fx, rig.fy, rig.cx, rig.cy, points[0].device,
+               tuple((tuple(x.shape), x.dtype) for x in points))
+        with self._lock:
+            entry = self._graphs.get(key)
+            if entry is None:
+                out = self._capture(key, cfg, rig, points)
+                timing.count("verify.graph.eager")
+                timing.count("verify.graph.captured")
+                return out
+            static_in, graph, static_out, tally = entry
+            for buf, x in zip(static_in, points):
+                buf.copy_(x)
+            graph.replay()
+            _cuda.replay_launches(tally)
+            timing.count("verify.graph.replayed")
+            return VerifiedLoop(**{f.name: getattr(static_out, f.name).clone()
+                                   for f in dataclasses.fields(VerifiedLoop)})
+
+    def _capture(self, key, cfg, rig, points) -> VerifiedLoop:
+        dev = points[0].device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = verify_from_points(cfg, self.generator, *points, rig)
+        main.wait_stream(side)
+        for f in dataclasses.fields(VerifiedLoop):
+            getattr(out, f.name).record_stream(main)
+        static_in = [x.clone() for x in points]
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        with _cuda.captured_launches() as tally, \
+                torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            static_out = verify_from_points(cfg, self.generator, *static_in, rig)
+        self._graphs[key] = (static_in, graph, static_out, tally)
+        return out
+
+
+def _verify_one(cfg, generator, rig, points, sample_idx, graphs: Optional[VerifyGraphs]):
+    """One pair's body: replayed by ``graphs`` where it engages, else
+    eager."""
+    if graphs is not None and graphs.engages(generator, points[0], sample_idx):
+        return graphs.run(cfg, rig, *points)
+    if points[0].is_cuda:
+        timing.count("verify.graph.eager")
+    return verify_from_points(cfg, generator, *points, rig, sample_idx=sample_idx)
+
+
 def verify_pair(
     cfg: VerifyConfig,
     generator: Optional[torch.Generator],
@@ -195,15 +290,16 @@ def verify_pair_depth(
     depth_b: torch.Tensor,
     rig: stereo.RectifiedRig,
     sample_idx=(None, None, None),
+    graphs: Optional[VerifyGraphs] = None,
 ) -> VerifiedLoop:
     """Depth-camera variant: 3D structure from the depth images directly
     (the reference's realsense/depth-topic rigs): the same matching, the
-    same three-way pose and the same gates as a stereo pair."""
+    same three-way pose and the same gates as a stereo pair (and, through
+    ``graphs``, the same graph as a stereo pair of the tier and shape)."""
     pts_a, ok_a = stereo.depth_to_points(depth_a, rig, cfg.min_depth, cfg.max_depth)
     pts_b, ok_b = stereo.depth_to_points(depth_b, rig, cfg.min_depth, cfg.max_depth)
-    return verify_from_points(
-        cfg, generator, left_a, pts_a, ok_a, left_b, pts_b, ok_b, rig, sample_idx=sample_idx
-    )
+    return _verify_one(cfg, generator, rig, (left_a, pts_a, ok_a, left_b, pts_b, ok_b),
+                       sample_idx, graphs)
 
 
 def verify_pair_batch(
@@ -215,10 +311,12 @@ def verify_pair_batch(
     right_b: torch.Tensor,
     rig: stereo.RectifiedRig,
     sample_idx=None,  # per pair, a (A, B, C) triple of (H, S) or None
+    graphs: Optional[VerifyGraphs] = None,
 ) -> VerifiedLoop:
     """P candidate pairs: stereo depth of all 2P frames in ONE K3 launch
-    (on CUDA tensors), then matching and the three RANSAC poses per pair.
-    Every VerifiedLoop field gains a leading P axis."""
+    (on CUDA tensors), then matching and the three RANSAC poses per pair,
+    replayed by ``graphs`` where it engages. Every VerifiedLoop field gains
+    a leading P axis."""
     P = left_a.shape[0]
     with timing.span("verify.depth", frames=2 * P):
         pts, ok, _ = stereo.depth_pipeline_rectified(
@@ -226,9 +324,9 @@ def verify_pair_batch(
             num_disp=cfg.num_disparities, block=cfg.block_size,
         )
     results = [
-        verify_from_points(
-            cfg, generator, left_a[p], pts[p], ok[p], left_b[p], pts[P + p], ok[P + p],
-            rig, sample_idx=(None, None, None) if sample_idx is None else sample_idx[p],
+        _verify_one(
+            cfg, generator, rig, (left_a[p], pts[p], ok[p], left_b[p], pts[P + p], ok[P + p]),
+            (None, None, None) if sample_idx is None else sample_idx[p], graphs,
         )
         for p in range(P)
     ]

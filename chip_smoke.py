@@ -94,7 +94,13 @@ also reported):
             edge, every one within 5 deg / 0.5 m of ground truth, at least
             one pair escalated and one accepted by tier 2 (the pipeline's
             own counts and verify_tier1 / verify_tier2 stages), every
-            world merged and a finite solve;
+            world merged and a finite solve. The verification graphs: the
+            pipeline's three verify.graph counters (no warmup here, so each
+            tier's first pair is eager and captures: 2 captured, 2 eager,
+            the other pairs replayed) and graph against eager on the run's
+            first 8 pairs, each tier (a fresh VerifyGraphs and an eager
+            call from the same generator state: every output field and the
+            generator's state after each pair equal);
   profile   one describe, Method-A detect, top-k detect, tier-1 verify and
             tier-2 verify call of the pipelines under torch.profiler, and
             one optimize_trajectory call: host and device ms, device idle
@@ -265,7 +271,17 @@ also reported):
             queries, Q = the run's descriptor batch) with those runs'
             launches (K3's count includes them); k1_train_d256, K1 on the
             train phase's run of the weights it trained, with that run's
-            launches (K3's count includes that run's too).
+            launches (K3's count includes that run's too); small_eig, the
+            small-matrix kernel (csrc/small_eig.cu: a 12x12 symmetric
+            smallest eigenvector, 3x3 SVDs, a 6x6 SPD solve), with
+            pipeline_photo's runs on the device as ``launches`` (eager
+            launches and each graph replay's recorded ones) and its host
+            launches (eager pairs and captures) as ``host_launches``, its
+            error against
+            torch.linalg on the card (eigenvector up to sign, the callers'
+            rotation U diag(1, 1, d) Vt, the solve) and its and
+            torch.linalg's times at the main path's batch sizes: 256 3x3
+            SVDs (ICP's hypotheses), one 12x12, one 6x6.
 
 Then the nvidia-smi line, and last ``{"ok": true, "device": {...}}``. Any
 failed check raises; the script exits non-zero without CUDA.
@@ -340,6 +356,11 @@ PHOTO_FRAMES, PHOTO_LAPS = 400, 1.4  # the 1,000-frame, 3.5-lap spacing
 PHOTO_FULL_FRAMES, PHOTO_FULL_LAPS = 1000, 3.5  # bench_e2e.py's photo run
 EUROC_FRAMES, EUROC_LAPS = 400, 2.0  # the EuRoC fixture: lap 2 revisits lap 1
 ROUNDTRIP_LIMIT = 3.0  # grey levels per pixel, rectified against the image it came from
+# small_eig against torch.linalg on the card at the small_eig phase's inputs
+# (H100, 700 W: 1.1e-6, 3.6e-7 and a relative 1.2e-7), with ten times room
+# or more: the rotation U diag(1, 1, d) Vt and the eigenvector (up to sign)
+# absolute, the solve relative to its largest entry.
+SMALL_EIG_TOL = {"svd3": 1e-5, "sym12": 1e-5, "spd6_rel": 1e-4}
 LIVE_RATE_HZ, LIVE_LAP_S = 20.0, 15.0  # the live stream: 20 Hz, a lap every 15 s
 LIVE_S, LIVE_PHASE_S = 30.0, 60.0  # its length in the default run and under --phase live
 # Edge error against ground truth: every depth edge within 2 deg / 0.2 m;
@@ -1053,9 +1074,11 @@ def phase_pipeline_photo(device, n_frames: int, laps: float):
     from cerebro_tpu_torch import photoworld as pw
     from cerebro_tpu_torch import synthworld as sw
     from cerebro_tpu_torch.eval import ate_rmse
+    from cerebro_tpu_torch.ops import small_eig
     from cerebro_tpu_torch.ops.similarity import K1, K2
     from cerebro_tpu_torch.ops.stereo_kernel import K3
     from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+    from cerebro_tpu_torch.verify.geometric import GRAPH_COUNTERS
 
     t0 = time.perf_counter()
     world = pw.PhotoWorld.create(seed=0)
@@ -1067,6 +1090,8 @@ def phase_pipeline_photo(device, n_frames: int, laps: float):
     pipe = CerebroPipeline(cfg, rig=ren.rig(), body_T_cam=sw.body_T_cam(), device=device)
     pipe.timer.sync = True
     K1.launches = K2.launches = K3.launches = 0
+    for k in small_eig.KERNELS:
+        k.reset()
     t0 = time.perf_counter()
     feed_survey(pipe, seq, frames)
     cands = list(pipe.candidates)
@@ -1078,7 +1103,9 @@ def phase_pipeline_photo(device, n_frames: int, laps: float):
     t0 = time.perf_counter()
     opt = pipe.optimize_trajectory()
     t_opt = time.perf_counter() - t0
-    launches = {"k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches}
+    launches = {"k1_launches": K1.launches, "k2_launches": K2.launches, "k3_launches": K3.launches,
+                "small_eig_runs": sum(k.runs for k in small_eig.KERNELS),
+                "small_eig_host_launches": sum(k.launches for k in small_eig.KERNELS)}
 
     kf = np.nonzero(pipe.store.pose_valid[: pipe.store.size])[0]
     w0 = pipe.store.world_id[kf] == 0
@@ -1134,10 +1161,41 @@ def phase_pipeline_photo(device, n_frames: int, laps: float):
         "verify_s": t_verify,
         "detect_batches": stats["detect"]["count"],
         **launches,
+        "verify_graph_counters": {k: status["counters"][k] for k in GRAPH_COUNTERS},
+        "pairs_verified": sum(status["counters"].get(f"pairs.verified.tier{t}", 0) for t in (1, 2)),
+        "graph_vs_eager": graph_vs_eager(pipe, cands),
         "stage_mean_ms": {k: steady[k]["mean_ms"] for k in stages if "mean_ms" in steady[k]},
         "stage_first_ms": {k: steady[k].get("first_ms") for k in stages},
     }
     return out, pipe
+
+
+def graph_vs_eager(pipe, cands, n: int = 8) -> dict:
+    """Replayed against eager verification on the run's first ``n``
+    candidate pairs, each cascade tier: a fresh ``VerifyGraphs`` and an
+    eager call from generators in the same state, pair by pair (the first
+    pair captures). Per tier: pairs, those whose outputs differ in any
+    field, and whether the generators' states stayed equal."""
+    from cerebro_tpu_torch.verify import geometric as G
+
+    vcfg = pipe.cfg.verify
+    pairs = [p for p in (pipe._load_pair(c) for c in cands[:n]) if p is not None]
+    out = {}
+    for tier, cfg_t in ((1, vcfg), (2, dataclasses.replace(vcfg, matcher="gather"))):
+        gen_g = torch.Generator(device=pipe.device).manual_seed(1000 + tier)
+        gen_e = torch.Generator(device=pipe.device).manual_seed(1000 + tier)
+        graphs = G.VerifyGraphs(gen_g)
+        differ, same_state = 0, True
+        for _, la, ra, lb, rb in pairs:
+            imgs = [torch.from_numpy(x)[None].to(pipe.device) for x in (lb, rb, la, ra)]
+            got = G.verify_pair_batch(cfg_t, gen_g, *imgs, pipe.rig, graphs=graphs)
+            want = G.verify_pair_batch(cfg_t, gen_e, *imgs, pipe.rig)
+            differ += not all(torch.equal(getattr(got, f.name), getattr(want, f.name))
+                              for f in dataclasses.fields(G.VerifiedLoop))
+            same_state &= bool(torch.equal(gen_g.get_state(), gen_e.get_state()))
+        out[f"tier{tier}"] = {"pairs": len(pairs), "differ": differ,
+                              "generator_state_equal": same_state}
+    return out
 
 
 def check_photo(run: dict):
@@ -1151,9 +1209,74 @@ def check_photo(run: dict):
     check(run["edge_rot_err_deg_max"] <= 5.0 and run["edge_trans_err_m_max"] <= 0.5,
           "an accepted photo-world loop edge is far from ground truth")
     check(run["worlds_merged"] == run["worlds"], "the photo run left a world unmerged")
+    g = run["verify_graph_counters"]
+    check(g["verify.graph.captured"] == 2 and g["verify.graph.eager"] == 2
+          and g["verify.graph.replayed"] + g["verify.graph.eager"] == run["pairs_verified"],
+          f"the photo run's verification graphs: {g} for {run['pairs_verified']} pairs")
+    # the replays run small_eig from the graphs: more runs than host launches
+    check(0 < run["small_eig_host_launches"] < run["small_eig_runs"],
+          f"the photo run's small_eig: {run['small_eig_runs']} runs on the device, "
+          f"{run['small_eig_host_launches']} host launches, for {g}")
+    check(all(t["pairs"] > 0 and t["differ"] == 0 and t["generator_state_equal"]
+              for t in run["graph_vs_eager"].values()),
+          f"replayed verification differs from eager: {run['graph_vs_eager']}")
     # no ATE check: at 400 frames over 1.4 laps every revisit lies across
     # the kidnap (lap 2 starts after it), so world 0 gets no loop of its own
     check(np.isfinite(run["ate_after_m_all"]), "the photo run's solve is not finite")
+
+
+def phase_small_eig(device) -> dict:
+    """The small-matrix kernel (csrc/small_eig.cu) against torch.linalg on
+    the card at the main path's batch sizes: 256 3x3 SVDs (ICP's
+    hypotheses), one 12x12 smallest eigenvector (a PnP refit), one 6x6
+    solve (a Gauss-Newton step). Errors: the callers' rotation U diag(1, 1,
+    sign det(U Vt)) Vt, the eigenvector up to sign, the solve. Times: each
+    entry's and torch.linalg's (which reads its error code back to the host
+    on every call), and the bound of each (bytes: the matrices in, the
+    factors out)."""
+    from cerebro_tpu_torch.ops import small_eig
+
+    rng = np.random.default_rng(0)
+    A = torch.from_numpy(rng.normal(size=(256, 3, 3)).astype(np.float32)).to(device)
+    X = rng.normal(size=(40, 12))
+    M = torch.from_numpy((X.T @ X).astype(np.float32))[None].to(device)
+    J = rng.normal(size=(200, 6))
+    H = torch.from_numpy((J.T @ J + 1e-6 * np.eye(6)).astype(np.float32))[None].to(device)
+    g = torch.from_numpy(rng.normal(size=(1, 6)).astype(np.float32)).to(device)
+
+    def rotation(U, Vt):
+        d = torch.sign(torch.linalg.det(U @ Vt))
+        return U @ torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)) @ Vt
+
+    v, vl = small_eig.smallest_eigvec(M)[0], torch.linalg.eigh(M)[1][0, :, 0]
+    x, xl = small_eig.spd_solve(H, g), torch.linalg.solve(H, g)
+    errs = {
+        "svd3": float((rotation(*small_eig.svd3(A)[::2]) - rotation(*torch.linalg.svd(A)[::2]))
+                      .abs().max()),
+        "sym12": float(torch.minimum((v - vl).abs().max(), (v + vl).abs().max())),
+        "spd6": float((x - xl).abs().max()),
+    }
+    errs["spd6_rel"] = errs["spd6"] / float(xl.abs().max())
+    for name, tol in SMALL_EIG_TOL.items():
+        check(errs[name] <= tol, f"small_eig {name}: {errs[name]} against torch.linalg, over {tol}")
+    calls = {
+        "svd3": (lambda: small_eig.svd3(A), lambda: torch.linalg.svd(A), 256 * (9 + 21) * 4),
+        "sym12": (lambda: small_eig.smallest_eigvec(M), lambda: torch.linalg.eigh(M),
+                  (144 + 12) * 4),
+        "spd6": (lambda: small_eig.spd_solve(H, g), lambda: torch.linalg.solve(H, g),
+                 (36 + 6 + 6) * 4),
+    }
+    out = {"phase": "small_eig", "max_abs_err": max(errs["svd3"], errs["sym12"], errs["spd6"]),
+           "errors": errs, "tolerances": SMALL_EIG_TOL,
+           "plain": "torch.linalg, the CPU path's calls, on the card"}
+    for name, (kern, lib, nbytes) in calls.items():
+        out[name] = {"kernel_ms": cuda_ms(kern, 200), "library_ms": cuda_ms(lib, 50),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    for key in ("kernel_ms", "library_ms", "bound_ms"):
+        out[key] = sum(out[name][key] for name in calls)
+    out["plain_ms"] = out["library_ms"]
+    out["bound_by"] = "bytes"
+    return out
 
 
 def phase_profile(pipe, cands, topk_pipe, reps: int = 3) -> dict:
@@ -3180,6 +3303,7 @@ def main(argv=None) -> int:
         return 1
 
     from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.ops import small_eig
     from cerebro_tpu_torch.ops._cuda import build_all
     from cerebro_tpu_torch.ops.similarity import K1, K2
     from cerebro_tpu_torch.ops.stereo_kernel import K3
@@ -3188,9 +3312,9 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda:0")
     smi = nvidia_smi()
-    kernels = [K3] if args.phase == "k3" else [K1, K2, K3]
+    kernels = [K3] if args.phase == "k3" else [K1, K2, K3, *small_eig.KERNELS]
     build_s = build_all(kernels)
-    for k in {k.source: k for k in kernels}.values():  # K1 and K2 share a source
+    for k in {k.source: k for k in kernels}.values():  # handles may share a source
         print(f"--- nvcc {k.source.name} ---\n{k.build_log}", file=sys.stderr)
     emit({
         "phase": "device",
@@ -3254,6 +3378,8 @@ def main(argv=None) -> int:
     emit(k2)
     k3 = phase_k3(device, world)
     emit(k3)
+    eig = phase_small_eig(device)
+    emit(eig)
 
     # Main-path runs. Launches made above to compare and time the kernels
     # do not count: every count is set to 0 just before a run.
@@ -3357,6 +3483,12 @@ def main(argv=None) -> int:
         euroc_kernel_entries(euroc_checks, euroc_launches)[-1],  # K1 at D=191
         *netvlad_kernel_entries(netvlad_runs),  # K1 at D=4,096 and D=256
         train_kernel_entries(train_checks, train_launches)[0],  # K1 on the run of trained weights
+        {**kernel_entry("small_eig (svd3 x256, sym12 x1, spd6 x1)",
+                        "cerebro_tpu_torch/csrc/small_eig.cu",
+                        "none: jnp.linalg in the JAX package", photo["small_eig_runs"],
+                        eig["max_abs_err"], eig),
+         "host_launches": photo["small_eig_host_launches"],
+         **{name: eig[name] for name in ("svd3", "sym12", "spd6")}},
     ]
     check(all(e["launches"] > 0 for e in kernels), "a kernel of the main path never launched")
     emit({"kernels": kernels})

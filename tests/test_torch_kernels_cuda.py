@@ -655,3 +655,293 @@ def test_mesh_of_one_rank_on_the_card_is_the_plain_call(cuda):
         assert torch.equal(g, pg) and torch.equal(v, pv)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# Verification on the card: the small-matrix kernel, the per-pair graph
+# ---------------------------------------------------------------------------
+
+
+def _svd3_inputs(kind, rng, B=256):
+    """B 3x3 matrices: Gaussian; two singular values 1e-6 apart with det > 0
+    (the closest rotation is then U Vt, well defined); det < 0; rank 2 (the
+    Umeyama H of points on one plane, as the nadir camera's ground)."""
+    if kind == "rank2":
+        A = rng.normal(size=(B, 3, 2)) @ rng.normal(size=(B, 2, 3))
+    elif kind == "near_degenerate":
+        U, _, Vt = np.linalg.svd(rng.normal(size=(B, 3, 3)))
+        U[..., :, 2] *= np.sign(np.linalg.det(U @ Vt))[:, None]
+        A = U @ np.diag([2.0, 1.0 + 1e-6, 1.0]) @ Vt
+    else:
+        A = rng.normal(size=(B, 3, 3))
+        if kind == "reflection":
+            A[np.linalg.det(A) > 0] *= -1.0
+    return torch.from_numpy(A.astype(np.float32))
+
+
+def _closest_rotation(U, Vt):
+    d = torch.sign(torch.linalg.det(U @ Vt))
+    return U @ torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1)) @ Vt
+
+
+@pytest.mark.parametrize("kind", ["random", "near_degenerate", "reflection", "rank2"])
+def test_small_eig_svd3_matches_linalg(cuda, kind):
+    """The kernel's U, S, Vt against torch.linalg.svd on the card: S within
+    4e-6 of the largest (f32 rounding of the column norms), U and Vt
+    orthogonal within 2e-6, A rebuilt within 4e-6, and the callers' rotation
+    U diag(1, 1, d) Vt, d = sign det(U Vt), per matrix within 1e-6 (s1 /
+    (s2 + d s3) + 1): f32 rounding of both factorisations, amplified by the
+    rotation's condition (a reflection's turns on the gap between its two
+    smallest singular values)."""
+    from cerebro_tpu_torch.ops import small_eig
+
+    A = _svd3_inputs(kind, np.random.default_rng(len(kind))).to(cuda)
+    U, S, Vt = small_eig.svd3(A)
+    Ul, Sl, Vtl = torch.linalg.svd(A)
+    scale = float(Sl[:, 0].max())
+    assert float((S - Sl).abs().max()) <= 4e-6 * scale
+    eye = torch.eye(3, device=cuda)
+    for Q in (U, Vt):
+        assert float((Q @ Q.transpose(-1, -2) - eye).abs().max()) <= 2e-6
+    assert float((U @ torch.diag_embed(S) @ Vt - A).abs().max()) <= 4e-6 * scale
+    d = torch.sign(torch.linalg.det(A))
+    tol = 1e-6 * (Sl[:, 0] / (Sl[:, 1] + d * Sl[:, 2]) + 1.0)
+    err = (_closest_rotation(U, Vt) - _closest_rotation(Ul, Vtl)).abs().amax(dim=(1, 2))
+    assert bool((err <= tol).all()), float((err / tol).max())
+    if kind == "reflection":
+        assert bool((small_eig.det3(A) < 0).all())
+
+
+def _sym12_inputs(kind, rng):
+    """A 12x12 symmetric matrix: random SPD; a clustered spectrum (the
+    smallest alone, the others in pairs 1e-6 apart); a DLT normal matrix
+    of 60 noisy correspondences; rank 11 (a null vector, eigenvalue 0)."""
+    if kind == "clustered":
+        Q, _ = np.linalg.qr(rng.normal(size=(12, 12)))
+        w = np.array([1e-4, 1, 1 + 1e-6, 2, 2 + 1e-6, 3, 3 + 1e-6, 4, 4, 5, 5, 6])
+        return (Q * w) @ Q.T
+    if kind == "dlt":
+        X = np.stack([rng.uniform(-2, 2, 60), rng.uniform(-1.5, 1.5, 60), rng.uniform(3, 8, 60)], -1)
+        x = (X + [0.3, -0.1, 0.2])[:, :2] / (X + [0.3, -0.1, 0.2])[:, 2:] + rng.normal(0, 2e-3, (60, 2))
+        Xh = np.concatenate([X, np.ones((60, 1))], 1)
+        z = np.zeros_like(Xh)
+        A = np.concatenate([np.concatenate([Xh, z, -x[:, :1] * Xh], 1),
+                            np.concatenate([z, Xh, -x[:, 1:] * Xh], 1)])
+        return A.T @ A
+    X = rng.normal(size=(11 if kind == "rank11" else 40, 12))
+    return X.T @ X
+
+
+@pytest.mark.parametrize("kind", ["random", "clustered", "dlt", "rank11"])
+def test_small_eig_eigvec_matches_linalg(cuda, kind):
+    """The kernel's smallest eigenvector against torch.linalg.eigh's on the
+    card, up to sign: 1 - |<v, v_ref>| within 1e-5 times the condition of
+    the eigenvector (the largest eigenvalue over the gap to the next
+    smallest), and the residual |M v - l_min v| within 1e-5 of |M|."""
+    from cerebro_tpu_torch.ops import small_eig
+
+    M64 = _sym12_inputs(kind, np.random.default_rng(3 + len(kind)))
+    M = torch.from_numpy(M64.astype(np.float32)).to(cuda)
+    v = small_eig.smallest_eigvec(M[None])[0]
+    w, V = torch.linalg.eigh(M)
+    wd = np.linalg.eigvalsh(M64)
+    cond = max(1.0, wd[-1] / (wd[1] - wd[0]))
+    assert abs(1.0 - abs(float(v @ V[:, 0]))) <= 1e-5 * cond
+    assert abs(float(v.norm()) - 1.0) <= 1e-6
+    assert float((M @ v - w[0] * v).abs().max()) <= 1e-5 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("cond", [1.0, 1e3, 1e6])
+def test_small_eig_spd_solve_matches_linalg(cuda, cond):
+    """pnp_refine_gn's JᵀJ + 1e-6 I at three column scalings of J: the
+    Cholesky solve against torch.linalg.solve on the card within 2e-5 x
+    cond of the solution (f32 rounding, amplified by the condition), and
+    NaN, not a number, for a matrix that is not positive definite."""
+    from cerebro_tpu_torch.ops import small_eig
+
+    rng = np.random.default_rng(int(np.log10(cond)))
+    J = rng.normal(size=(200, 6)) * np.sqrt(np.logspace(0, np.log10(cond), 6))
+    H = torch.from_numpy((J.T @ J + 1e-6 * np.eye(6)).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=6).astype(np.float32)).to(cuda)
+    x = small_eig.spd_solve(H, g)
+    want = torch.linalg.solve(H, g)
+    assert float((x - want).abs().max()) <= 2e-5 * cond * float(want.abs().max())
+    bad = torch.diag(torch.tensor([1.0, 1.0, -1.0, 1.0, 1.0, 1.0], device=cuda))
+    assert bool(small_eig.spd_solve(bad, g).isnan().any())
+
+
+def test_small_eig_rejects_what_the_kernel_does_not_take(cuda):
+    from cerebro_tpu_torch.ops import small_eig
+
+    with pytest.raises(ValueError, match="12, 12"):
+        small_eig.smallest_eigvec(torch.eye(6, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        small_eig.svd3(torch.eye(3, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="6, 6"):
+        small_eig.spd_solve(torch.eye(3, device=cuda), torch.ones(3, device=cuda))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pnp_refit_at_the_fewest_inliers_matches_cpu(cuda, seed):
+    """ransac_pnp's refit, pnp_dlt's exact path then pnp_refine_gn's five
+    Cholesky steps, on the card against the CPU's eigh and LU solves, at the
+    fewest weighted points a PnP option can succeed on: 14, 0.7 of
+    min_points_for_solve (20). Points 3-8 m deep, 1e-3 of pixel-plane
+    noise. The two poses agree within 1e-4 (float32 rounding of two
+    solvers, amplified by a pose fixed by 14 noisy points)."""
+    from cerebro_tpu_torch.geometry import se3
+    from cerebro_tpu_torch.ops import pnp
+
+    rng = np.random.default_rng(seed)
+    N, n_in = 64, 14
+    X = np.stack([rng.uniform(-2, 2, N), rng.uniform(-1.5, 1.5, N), rng.uniform(3, 8, N)], -1)
+    xi = np.concatenate([rng.normal(0, 0.1, 3), rng.normal(0, 0.05, 3)])
+    T = se3.se3_exp(torch.from_numpy(xi.astype(np.float32))).numpy()
+    Pc = X @ T[:3, :3].T + T[:3, 3]
+    x = Pc[:, :2] / Pc[:, 2:] + rng.normal(0, 1e-3, (N, 2))
+    x[n_in:] += rng.normal(0, 0.2, (N - n_in, 2))  # outliers, weighted 0
+    w = (np.arange(N) < n_in).astype(np.float32)
+
+    def refit(device):
+        Xt, xt, wt = (torch.from_numpy(a.astype(np.float32)).to(device) for a in (X, x, w))
+        return pnp.pnp_refine_gn(pnp.pnp_dlt(Xt, xt, wt), Xt, xt, wt, iters=5).cpu()
+
+    on_cpu, on_card = refit("cpu"), refit(cuda)
+    assert bool(torch.isfinite(on_card).all()) and bool(torch.isfinite(on_cpu).all())
+    assert float((on_card - on_cpu).abs().max()) <= 1e-4
+    assert float((on_card - torch.from_numpy(T)).abs().max()) <= 0.05  # the pose it should find
+
+
+@pytest.fixture(scope="module")
+def photo_pairs():
+    """Photo-world stereo frames at the EuRoC rig's 480x752 (the
+    benchmark's world and rig), their K3 depth, and the benchmark
+    configuration's two tiers: 5,000 features, gate 800. Frames 0 and 1 lie
+    9 cm apart (an accepted pair: 1,179 matches through tier 1 on the CPU),
+    2 elsewhere (no match), 3 a further 9 cm on (accepted with 1, rejected
+    at the gate with 0: 988 and 739 matches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import dataclasses
+    import json
+    import os
+
+    from cerebro_tpu_torch.geometry.stereo import RectifiedRig
+    from portbench import system
+    from portbench import world as W
+
+    root = os.path.join(os.path.dirname(__file__), "..", "portbench")
+    with open(os.path.join(root, "configs", "bench_e2e_top3.json")) as fh:
+        cfg_file = json.load(fh)
+    with open(os.path.join(root, "traffic", "relocalize.json")) as fh:
+        traffic = json.load(fh)
+    dev = torch.device("cuda")
+    tex, mask, tex_m, _ = W.load_world(traffic["world"])
+    ren = W.Renderer(tex, mask, tex_m, dev, cfg_file["rig"])
+    xy = np.array([[14.0, 0.0], [14.05, 0.08], [0.0, 14.0], [14.1, 0.15]], np.float32)
+    left, right = ren.stereo_frames(xy)
+    vcfg = system.make_config(cfg_file["cerebro_config"]).verify
+    rig = RectifiedRig(R0=np.eye(3, dtype=np.float32), R1=np.eye(3, dtype=np.float32),
+                       **W.rig_params(cfg_file["rig"]))
+    L = torch.from_numpy(left).to(dev).float()
+    R = torch.from_numpy(right).to(dev).float()
+    pts, ok, _ = stereo.depth_pipeline_rectified(L, R, rig, num_disp=vcfg.num_disparities,
+                                                 block=vcfg.block_size)
+    tiers = {"tier1": vcfg, "tier2": dataclasses.replace(vcfg, matcher="gather")}
+    return tiers, rig, lambda a, b: (L[a], pts[a], ok[a], L[b], pts[b], ok[b])
+
+
+@pytest.mark.parametrize("tier", ["tier1", "tier2"])
+def test_verify_graph_replay_matches_eager(cuda, photo_pairs, tier):
+    """Replayed pairs against eager ``verify_from_points`` from the same
+    generator state, pair after pair (the first captures): every output
+    bit-equal (the same kernels in the same order on the same inputs and
+    philox offsets), and the generators' states equal after each pair. Each
+    replay counts the small-matrix launches its capture recorded."""
+    import dataclasses
+
+    from cerebro_tpu_torch.ops import small_eig
+    from cerebro_tpu_torch.verify import geometric as G
+
+    tiers, rig, points = photo_pairs
+    cfg = tiers[tier]
+    gen_g = torch.Generator(device=cuda).manual_seed(2147483659)
+    gen_e = torch.Generator(device=cuda).manual_seed(2147483659)
+    graphs = G.VerifyGraphs(gen_g)
+    for k in small_eig.KERNELS:
+        k.reset()
+    decided = []
+    for a, b in [(0, 1), (0, 2), (3, 1), (0, 1), (3, 0)]:
+        got = graphs.run(cfg, rig, *points(a, b))
+        want = G.verify_from_points(cfg, gen_e, *points(a, b), rig)
+        for f in dataclasses.fields(G.VerifiedLoop):
+            assert torch.equal(getattr(got, f.name), getattr(want, f.name)), (a, b, f.name)
+        assert torch.equal(gen_g.get_state(), gen_e.get_state())
+        decided.append((bool(got.accepted), int(got.n_matches)))
+    assert len(graphs._graphs) == 1
+    for k in small_eig.KERNELS:
+        # 6 eager bodies (the capture's first pair, 5 references) and the
+        # capture from the host; 4 replays of the capture on the device
+        assert k.captured > 0 and k.launches == 7 * k.captured, k.functions
+        assert k.replayed == 4 * k.captured and k.runs == 10 * k.captured, k.functions
+    if tier == "tier1":  # the pairs give both outcomes
+        assert [acc for acc, _ in decided] == [True, False, True, True, False], decided
+
+
+@pytest.mark.parametrize("tier", ["tier1", "tier2"])
+def test_verify_body_reads_nothing_back(cuda, photo_pairs, tier):
+    """One eager call of the per-pair body under
+    ``torch.cuda.set_sync_debug_mode("error")``: nothing in it synchronises
+    with the host (after a first call, which builds the kernels and puts the
+    matchers' constants on the device)."""
+    from cerebro_tpu_torch.verify import geometric as G
+
+    tiers, rig, points = photo_pairs
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    G.verify_from_points(tiers[tier], gen, *points(0, 1), rig)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = G.verify_from_points(tiers[tier], gen, *points(0, 1), rig)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(out.n_matches) > 0
+
+
+def test_warmed_pipeline_replays_like_eager(cuda):
+    """chip_smoke's photo run (240x320, 200 frames over 1.4 laps, the
+    default cascade) through a warmed pipeline that replays its graphs and
+    through one that verifies eagerly, one after the other on the default
+    stream: the same edges (poses bit-equal) and the same rejections. The
+    replaying one captured both tiers in warmup and replayed every pair."""
+    from cerebro_tpu_torch import photoworld as pw
+    from cerebro_tpu_torch import synthworld as sw
+    from cerebro_tpu_torch.runtime.pipeline import CerebroPipeline
+
+    cs = _chip_smoke()
+    seq = pw.make_photo_sequence(n_frames=200, laps=1.4)
+    ren = sw.Renderer(pw.PhotoWorld.create(seed=0))
+    frames = [ren.stereo(float(x), float(y)) for x, y in seq.xy]
+    runs = []
+    for replay in (True, False):
+        pipe = CerebroPipeline(cs.photo_config(200), rig=ren.rig(), body_T_cam=sw.body_T_cam(),
+                               device="cuda")
+        if not replay:
+            pipe._verify_graphs = None
+        pipe.warmup(verify_device_batches=(4,))
+        cs.feed_survey(pipe, seq, frames)
+        pipe.verify_pending()
+        runs.append((
+            [(e.idx_curr, e.idx_prev, e.n_matches, e.weight, e.T_prev_curr.tobytes())
+             for e in pipe.loop_edges],
+            [(r.idx_curr, r.idx_prev, r.reason, r.n_matches) for r in pipe.rejected_candidates],
+            pipe.status()["counters"],
+        ))
+        pipe.close()
+    (edges_g, rej_g, c), (edges_e, rej_e, c_e) = runs
+    assert edges_g == edges_e and rej_g == rej_e
+    assert len(edges_g) >= 1
+    pairs = c["pairs.verified.tier1"] + c.get("pairs.verified.tier2", 0)
+    assert (c["verify.graph.captured"], c["verify.graph.eager"]) == (2, 0)
+    assert c["verify.graph.replayed"] == pairs > 0
+    assert c_e["verify.graph.eager"] == pairs and c_e["verify.graph.replayed"] == 0

@@ -26,7 +26,7 @@ from cerebro_tpu_torch import config as C
 from cerebro_tpu_torch.posegraph import optimizer
 from cerebro_tpu_torch.runtime import pipeline as P
 from cerebro_tpu_torch.utils import timing
-from cerebro_tpu_torch.verify.geometric import VerifiedLoop
+from cerebro_tpu_torch.verify.geometric import GRAPH_COUNTERS, VerifiedLoop
 
 D = 64
 PLACES = 120
@@ -113,7 +113,8 @@ def _frame(k: int, place: int) -> np.ndarray:
     return img
 
 
-def _stub_verify(cfg, generator, left_a, right_a, left_b, right_b, rig, sample_idx=None):
+def _stub_verify(cfg, generator, left_a, right_a, left_b, right_b, rig, sample_idx=None,
+                 graphs=None):
     """By the current frame's number k: k % 4 == 0 accepted; 1 too few
     matches (tier 2, the gather matcher, accepts where k % 8 == 1); 2 a
     RANSAC option fails; 3 the poses disagree."""
@@ -187,7 +188,8 @@ def test_pipeline_counters_ids_and_status(tmp_path, monkeypatch):
     assert c["solve.gn_steps"] == 2 and 0 < c["solve.cg_iters"] <= 16
     st = on.status()
     assert st["verify_queue"] == st["undrained_batches"] == st["pending_candidates"] == 0
-    assert st["counters"] == c
+    # status() also shows the three verification-graph counts, 0 on the CPU
+    assert st["counters"] == {**dict.fromkeys(GRAPH_COUNTERS, 0), **c}
 
     # every candidate id: raised once, decided once; tier 2's accepts
     raised = Counter(s["attrs"]["cid"] for s in _spans(on.timer, "cand.raised"))
