@@ -1,14 +1,15 @@
 """The comparison that decides ``correct``, run once the window has closed
 and the system is freed: the reference recomputes what it needs from the
-inputs the benchmark made (the frames, the route, the weights artifact) and
-judges the system's outputs (``reference/judge.py`` says what each number
-is).
+inputs the benchmark made (the frames, the route, the weights the cell's
+net module names) and judges the system's outputs (``reference/judge.py``
+says what each number is). The descriptors are the reference of the net the
+configuration names (``portbench/nets/<net>.py``).
 
 ``control=True`` puts the reference in the system's place, one precision
-below the configuration's: float8 descriptors for the bfloat16 net (and the
-candidates and best scores they give the system's queries), a bfloat16
-solve for the float32 one. It is the run each limit has to fail; the benchmark's own runs
-never make it.
+below the configuration's: the net module's control descriptors (float8 for
+the bfloat16 flagship; and the candidates and best scores they give the
+system's queries), a bfloat16 solve for the float32 one. It is the run each
+limit has to fail; the benchmark's own runs never make it.
 """
 
 from __future__ import annotations
@@ -18,19 +19,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench.reference import descriptor as ref_desc
 from portbench.reference import judge
 from portbench.reference import posegraph as ref_pg
 from portbench import world as W
 
-ARTIFACT = Path(__file__).resolve().parent.parent / "artifacts" / "descriptor_ported"
 
-
-def numbers(out: dict, stream, device, control: bool = False) -> dict:
-    weights = ref_desc.load_weights(str(ARTIFACT), device)
+def numbers(out: dict, stream, device, net, weights_dir: Path, control: bool = False) -> dict:
+    """The compared numbers; ``net`` is the cell's net module, its weights
+    in ``weights_dir``."""
+    weights = net.load(weights_dir, device)
     gid_frame = list(out["gid_frame"])
     frames = out["left"][gid_frame] if gid_frame else out["left"][:0]
-    ref = ref_desc.describe_all(weights, frames, device)
+    ref = net.describe_all(weights, frames, device)
     mismatch = _stream_mismatch(out, stream)
 
     lcfg = out["loop_cfg"]
@@ -42,7 +42,7 @@ def numbers(out: dict, stream, device, control: bool = False) -> dict:
     rows, scores = out["db_rows"], out["scores"]
     excl = int(lcfg.exclusion_window)
     if control:
-        rows = ref_desc.describe_all(weights, frames, device, control=True)
+        rows = net.describe_all(weights, frames, device, control=True)
         queries = [(q, _control_pick(rows, q, excl)) for q, _ in queries]
         scores = judge.best_scores(rows, excl)
     nums = {

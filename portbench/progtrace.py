@@ -14,16 +14,16 @@ torch.profiler trace. This module reads them:
   and each idle gap named by the benchmark's span and the program's
   innermost span open at its start (``verify/cerebro.verify.ransac``);
   every number ``probe.reduce_trace`` gives is the same;
-* ``program`` / ``delta`` / ``decided`` / ``top_level``: the program's
-  spans and two snapshots of its counters and totals on a run
-  (``Run.program``), and what changed between two instants; the readers
-  ``metrics/{verify_launches_per_pair, verify_device_share,
+* ``program`` / ``delta`` / ``verified``: the program's
+  spans and the snapshots of its counters and totals on a run
+  (``Run.program``: ``system.py`` takes them at the window's and the
+  profiled slice's ends), and what changed between two instants; the
+  readers ``metrics/{verify_launches_per_pair, verify_device_share,
   solve_cg_iters, solve_ms_per_cg_iter, drain_ms_per_batch}.py`` read
   them, and read nothing from a run that holds none.
 
-The harness's own modules do not call this module yet: a run of the
-benchmark leaves the program's tracer off, holds no ``Run.program`` and
-reduces its trace with ``probe.reduce_trace``.
+``system.py`` turns the program's tracer on in traced runs only, and
+reduces their profiled slice with ``reduce_trace``.
 """
 
 from __future__ import annotations
@@ -154,25 +154,23 @@ class _Without:
 
 def program(run) -> Optional[dict]:
     """``run.program``: {"spans": the timer's exported spans (as dicts,
-    times in perf_counter seconds), "snapshots": [(perf_counter seconds,
-    counters, totals)]}, or None where the run holds none (a benchmark
-    run, which leaves the program's tracer off)."""
+    times in perf_counter seconds; none where the tracer was off),
+    "snapshots": [(perf_counter seconds, counters, totals)]}, or None where
+    the run holds none."""
     return getattr(run, "program", None)
 
 
 def delta(run, t0: float, t1: float) -> Optional[tuple]:
-    """(counters, totals) changed between the last snapshots taken at or
-    before ``t0`` and ``t1``; totals as {stage: (seconds, count)}."""
+    """(counters, totals) changed between the last snapshot taken at or
+    before ``t0`` and the first taken at or after ``t1``: the nearest pair
+    that holds the interval. Totals as {stage: (seconds, count)}."""
     prog = program(run)
     if prog is None:
         return None
     snaps = prog["snapshots"]
 
-    def at(t):
-        held = [s for s in snaps if s[0] <= t]
-        return held[-1] if held else None
-
-    a, b = at(t0), at(t1)
+    a = next((s for s in reversed(snaps) if s[0] <= t0), None)
+    b = next((s for s in snaps if s[0] >= t1), None)
     if a is None or b is None:
         return None
     counters = {k: v - a[1].get(k, 0) for k, v in b[1].items()}
@@ -183,11 +181,10 @@ def delta(run, t0: float, t1: float) -> Optional[tuple]:
     return counters, totals
 
 
-def decided(counters: dict) -> int:
-    """Pairs decided: accepted as edges or rejected at a gate (the pairs
-    ``verify_ms_per_pair`` counts)."""
-    return counters.get("edges.accepted", 0) + sum(
-        v for k, v in counters.items() if k.startswith("rejected."))
+def verified(counters: dict) -> int:
+    """Pairs verified, a pair once for each tier that verified it (tier 1,
+    tier 2, depth)."""
+    return sum(v for k, v in counters.items() if k.startswith("pairs.verified."))
 
 
 def spans_as_dicts(export: dict) -> List[dict]:
@@ -198,21 +195,6 @@ def spans_as_dicts(export: dict) -> List[dict]:
         d["t0"], d["t1"] = d.pop("t0_ns") * 1e-9, d.pop("t1_ns") * 1e-9
         out.append(d)
     return out
-
-
-def top_level(spans: List[dict], prefix: str) -> List[dict]:
-    """Spans named ``prefix*`` with no ``prefix*`` span above them."""
-    by_id = {s["id"]: s for s in spans}
-
-    def under(s):
-        p = by_id.get(s["parent"])
-        while p is not None:
-            if p["name"].startswith(prefix):
-                return True
-            p = by_id.get(p["parent"])
-        return False
-
-    return [s for s in spans if s["name"].startswith(prefix) and not under(s)]
 
 
 # the readers of the program's metrics

@@ -3,10 +3,11 @@
     python -m portbench --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 The cell, its configuration and its traffic are found by name: the cell in
-``BENCHMARK.json``, the configuration in the file it names, the traffic mix
-in ``portbench/traffic/<traffic>.json``, the limits of the comparison in
-``portbench/limits/<cell>.json``, and every metric's reader in
-``portbench/metrics/<metric>.py``. With ``--trace 0`` the line holds the
+``BENCHMARK.json``, the configuration in the file it names, its describe
+net (weights, reference, FLOPs and width) in ``portbench/nets/<net>.py``,
+the traffic mix in ``portbench/traffic/<traffic>.json``, the limits of the
+comparison in ``portbench/limits/<cell>.json``, and every metric's reader
+in ``portbench/metrics/<metric>.py``. With ``--trace 0`` the line holds the
 cell's end-to-end metrics; with ``--trace 1`` its per-layer metrics, the
 device's busy and window seconds from a profiler slice, and a breakdown.
 
@@ -112,23 +113,23 @@ def main(argv=None, t_process: float | None = None, device=None, traffic_overrid
         device = "cuda"
         torch.cuda.reset_peak_memory_stats()
 
-    from portbench import check, readers, route, system
-    from portbench.reference.descriptor import weight_shapes
-    from portbench.yardstick import describe_flops
+    from portbench import check, nets, progtrace, readers, route, system
 
+    net = nets.load(cfg_file["net"])
+    weights = net.weights_dir(cfg_file, PB / "_cache")
     stream = route.generate(traffic, args.seed)
     drive = {"open": system.open_loop, "closed": system.closed_loop}[traffic["loop"]]
-    run = drive(cfg_file, traffic, stream, args.seed, args.seconds, bool(args.trace), device, t_process)
+    run = drive(cfg_file, weights, traffic, stream, args.seed, args.seconds, bool(args.trace), device,
+                t_process)
 
     found = loaded_forbidden()
     if found:
         print(f"portbench: the process holds {found} once the window has closed", file=sys.stderr)
         return 3
 
-    shapes = weight_shapes(str(check.ARTIFACT))
     hw = tuple(cfg_file["cerebro_config"]["descriptor"]["image_hw"])
-    width = shapes["vlad/centers"][0] * shapes["vlad/centers"][1]
-    ctx = readers.Context(run=run, describe_flops=describe_flops(shapes, hw), width=int(width))
+    ctx = readers.Context(run=run, describe_flops=net.describe_flops(weights, hw),
+                          width=int(net.width(weights)))
     metrics = {}
     sources = {m["name"]: m["source"] for m in bench["end_to_end"] + bench["per_layer"]}
     for name, unit in metric_names(bench, cell["name"], bool(args.trace)):
@@ -138,10 +139,10 @@ def main(argv=None, t_process: float | None = None, device=None, traffic_overrid
         if v is not None:
             metrics[name] = {"value": float(v), "unit": unit}
 
-    nums = check.numbers(run.out, stream, device)
+    nums = check.numbers(run.out, stream, device, net, weights)
     if args.control:
         print("portbench: the system's numbers " + json.dumps(nums), file=sys.stderr)
-        nums = check.numbers(run.out, stream, device, control=True)
+        nums = check.numbers(run.out, stream, device, net, weights, control=True)
         print("portbench: control run: the numbers below are the reference's one precision "
               "below the configuration, in the system's place", file=sys.stderr)
     from portbench.reference.judge import compare
@@ -167,6 +168,17 @@ def main(argv=None, t_process: float | None = None, device=None, traffic_overrid
         line["breakdown"] = {"device_ops": run.trace["device_ops"], "idle_gaps": run.trace["idle_gaps"]}
     line["notes"] = {"window_s": run.window_s, "setup_detail": run.notes,
                      "samples": {"decisions": len(run.decision_ms), "keyframes": len(run.keyframe_ms)}}
+    if args.trace and run.trace is not None:
+        line["notes"]["device_by_span"] = run.trace.get("device_by_span")
+        ev = run.trace["device_events"]
+        # from the first device operation's start to the last one's end
+        line["notes"]["device_extent_s"] = max(e[1] for e in ev) - min(e[0] for e in ev) if ev else None
+        line["notes"]["program_launches"] = {
+            k: len(v) for k, v in readers.program_launches(ctx).items()}
+        line["notes"]["program_counters"] = {
+            part: (d[0] if d is not None else None) for part, d in (
+                ("window", progtrace.delta(run, run.window_t0, run.window_t1)),
+                ("slice", progtrace.delta(run, *run.trace_t)))}
     line["compared"] = {k: {"value": v, "limit": lim} for k, v, lim in rows}
     for k, v, lim in rows:
         print(f"portbench: compared {k} = {v!r} against limit {lim!r}", file=sys.stderr)

@@ -7,6 +7,13 @@ from a producer thread on the stream's due schedule; ``closed_loop`` drives
 after each, ``optimize_trajectory`` every ``solve_every_batches``). Both
 return a ``Run``: the timings the end-to-end and per-layer readers take, and
 the system's outputs that the judge compares with the reference.
+
+In a traced run (``trace``) the program's own tracer (``pipe.timer``) is on
+from the end of ``warmup()``: its spans, and snapshots of its counters and
+stage totals at the window's and the profiled slice's ends, are
+``Run.program`` (``portbench/progtrace.py`` reads them), and the slice is
+reduced with the program's spans (``progtrace.reduce_trace``). Untraced
+runs leave the tracer off.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from portbench import probe
+from portbench import probe, progtrace
 from portbench import world as W
 from portbench import yardstick as Y
 
@@ -41,6 +48,8 @@ class Run:
     trace: Optional[dict] = None
     trace_t: tuple = (0.0, 0.0)
     timer_stats: dict = dataclasses.field(default_factory=dict)
+    # the program's spans and snapshots of its counters (progtrace.program)
+    program: Optional[dict] = None
     memory_peak_bytes: int = 0
     notes: dict = dataclasses.field(default_factory=dict)
     # the system's outputs, read once the window has closed
@@ -63,16 +72,38 @@ def make_config(overrides: dict):
     return C.CerebroConfig(**parts)
 
 
-def make_pipeline(cfg_file: dict, seed: int, device):
+def make_pipeline(cfg_file: dict, weights, seed: int, device):
+    """The pipeline of the configuration, its describe net's weights read
+    from ``weights`` (the directory the net module names, which the
+    reference reads too)."""
     from cerebro_tpu_torch.geometry.stereo import RectifiedRig
     from cerebro_tpu_torch.runtime import CerebroPipeline
 
-    cfg = make_config(cfg_file["cerebro_config"])
+    overrides = dict(cfg_file["cerebro_config"])
+    overrides["descriptor"] = {**overrides["descriptor"], "artifact_dir": str(weights)}
+    cfg = make_config(overrides)
     rig = RectifiedRig(R0=np.eye(3, dtype=np.float32), R1=np.eye(3, dtype=np.float32),
                        **W.rig_params(cfg_file["rig"]))
     pipe = CerebroPipeline(cfg, rig=rig, body_T_cam=W.body_T_cam(), seed=seed % (2**31),
                            device=str(device))
     return pipe
+
+
+def snapshot(pipe) -> tuple:
+    """(perf_counter seconds, the program's counters, its stage totals)."""
+    return time.perf_counter(), pipe.timer.counters(), pipe.timer.totals()
+
+
+def _stop_profiler(prof, run: Run, pipe, snaps: list):
+    """End the profiled slice: snapshot the program, then stop the
+    profiler. The slice ends at the snapshot, as the profiler stops
+    recording: the stop itself, which processes the slice's events (6-15 s
+    for a relocalize slice on the H100), records nothing and is not part of
+    it. Its seconds go to the notes."""
+    snaps.append(snapshot(pipe))
+    prof.stop()
+    run.trace_t = (run.trace_t[0], snaps[-1][0])
+    run.notes["profiler_stop_s"] = time.perf_counter() - snaps[-1][0]
 
 
 def instrument(pipe, spans: probe.Spans, svc=None) -> Rejections:
@@ -158,17 +189,19 @@ def _check_capacity(cfg_file: dict, stream, n_frames: int):
 # ---------------------------------------------------------------------------
 
 
-def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, trace: bool,
-              device, t_process: float) -> Run:
+def open_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, seconds: float,
+              trace: bool, device, t_process: float) -> Run:
     from cerebro_tpu_torch.runtime import CerebroService
 
     run = Run()
     _check_capacity(cfg_file, stream, len(stream.xy))
     left, right, built = _frames(stream, device, traffic["world"], cfg_file["rig"])
     run.notes["world_built"] = built
-    pipe = make_pipeline(cfg_file, seed, device)
+    pipe = make_pipeline(cfg_file, weights, seed, device)
     warm = pipe.warmup(**{k: tuple(v) for k, v in cfg_file.get("warmup", {}).items()})
     run.notes["warmup_s"] = warm
+    pipe.timer.trace = trace
+    snaps = []
     svc = CerebroService(pipe, **cfg_file.get("service", {}))
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
     spans = probe.Spans(trace, sync)
@@ -207,7 +240,8 @@ def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, 
             if time.perf_counter() > deadline:
                 raise RuntimeError(f"the prefill did not drain: {len(poller.drained_at)} of {n_pre}")
             time.sleep(0.02)
-        t0 = time.perf_counter()
+        snaps.append(snapshot(pipe))
+        t0 = snaps[-1][0]
         run.setup_s = t0 - t_process
         run.window_t0 = t0
         due = {int(i): t0 + k / rate for k, i in enumerate(np.concatenate([win, tail]))}
@@ -230,25 +264,30 @@ def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, 
             return done
 
         t1 = t0 + seconds
+        snapped = False  # the program's snapshot at the window's end
         for i in np.concatenate([win, tail]):
             now = time.perf_counter()
             if trace and prof is None and now >= t_trace[0] and now < t_trace[1]:
+                snaps.append(snapshot(pipe))
                 prof, t_mark = probe.start_profiler()
                 run.trace_t = (t_mark, None)
             if prof is not None and run.trace_t[1] is None and now >= t_trace[1]:
-                prof.stop()
-                run.trace_t = (run.trace_t[0], time.perf_counter())
+                _stop_profiler(prof, run, pipe, snaps)
             target = due[int(i)]
             if target > now:
                 time.sleep(target - now)
             else:
                 behind_s = max(behind_s, now - target)
+            if not snapped and time.perf_counter() >= t1:
+                snaps.append(snapshot(pipe))
+                snapped = True
             push(i)
             if stream.part[i] == "tail" and completed() >= len(win_kf):
                 break
+        if not snapped:
+            snaps.append(snapshot(pipe))
         if prof is not None and run.trace_t[1] is None:
-            prof.stop()
-            run.trace_t = (run.trace_t[0], time.perf_counter())
+            _stop_profiler(prof, run, pipe, snaps)
         run.window_t1 = t1
         deadline = time.perf_counter() + 60.0
         while completed() < len(win_kf) and time.perf_counter() < deadline:
@@ -262,7 +301,7 @@ def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, 
         max([n for t, n in run.backlog if run.window_t0 + k * q <= t < run.window_t0 + (k + 1) * q],
             default=0) for k in range(4)]
     svc.stop()
-    _collect(run, pipe, stream, spans, rejections)
+    _collect(run, pipe, stream, spans, rejections, snaps)
     run.out["left"] = left
 
     run.attempted = len(win_kf)
@@ -271,7 +310,7 @@ def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, 
     run.decision_ms = Y.decision_latencies(run.out["candidates"], run.out["store_frame"], set(win_kf),
                                            due, poller.decided, run.window_t1)
     if trace and prof is not None:
-        run.trace = probe.reduce_trace(prof, run.trace_t[0], run.trace_t[1] - run.trace_t[0], spans)
+        run.trace = progtrace.reduce_trace(prof, run.trace_t[0], run.trace_t[1] - run.trace_t[0], spans)
     run.timer_stats = run.out.pop("timer_stats")
     run.memory_peak_bytes = run.out.pop("memory_peak_bytes")
     return run
@@ -282,8 +321,8 @@ def open_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, 
 # ---------------------------------------------------------------------------
 
 
-def closed_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float, trace: bool,
-                device, t_process: float) -> Run:
+def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, seconds: float,
+                trace: bool, device, t_process: float) -> Run:
     """The window is a fixed amount of work: whole rounds of
     ``solve_every_batches`` batches of keyframes, each batch verified, each
     round ended by a solve; the fewest whole rounds that fill ``seconds``
@@ -303,9 +342,11 @@ def closed_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float
     _check_capacity(cfg_file, stream, last + 1)
     left, right, built = _frames(stream, device, traffic["world"], cfg_file["rig"], last + 1)
     run.notes["world_built"] = built
-    pipe = make_pipeline(cfg_file, seed, device)
+    pipe = make_pipeline(cfg_file, weights, seed, device)
     warm = pipe.warmup(**{k: tuple(v) for k, v in cfg_file.get("warmup", {}).items()})
     run.notes["warmup_s"] = warm
+    pipe.timer.trace = trace
+    snaps = []
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else None
     spans = probe.Spans(trace, sync)
     run.spans = spans
@@ -325,7 +366,8 @@ def closed_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float
     pipe.optimize_trajectory()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    snaps.append(snapshot(pipe))
+    t0 = snaps[-1][0]
     run.setup_s = t0 - t_process
     run.window_t0 = t0
     t_trace = (float(traffic.get("trace_at_s", 10.0)), float(traffic.get("trace_s", 4.0)))
@@ -342,26 +384,26 @@ def closed_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float
             pipe.verify_pending()
             now = time.perf_counter() - t0
             if trace and prof is None and now >= t_trace[0]:
+                snaps.append(snapshot(pipe))
                 prof, t_mark = probe.start_profiler()
                 run.trace_t = (t_mark, None)
             elif prof is not None and run.trace_t[1] is None and now >= t_trace[0] + t_trace[1]:
-                prof.stop()
-                run.trace_t = (run.trace_t[0], time.perf_counter())
+                _stop_profiler(prof, run, pipe, snaps)
         pipe.optimize_trajectory()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
-    run.window_t1 = time.perf_counter()
+    snaps.append(snapshot(pipe))
+    run.window_t1 = snaps[-1][0]
     if prof is not None and run.trace_t[1] is None:
-        prof.stop()
-        run.trace_t = (run.trace_t[0], time.perf_counter())
+        _stop_profiler(prof, run, pipe, snaps)
     run.keyframes_done = rounds * per_round
     run.attempted = run.keyframes_done
     run.notes["rounds"] = rounds
     run.notes["window_frames_used"] = pos
-    _collect(run, pipe, stream, spans, rejections)
+    _collect(run, pipe, stream, spans, rejections, snaps)
     run.out["left"] = left
     if trace and prof is not None:
-        run.trace = probe.reduce_trace(prof, run.trace_t[0], run.trace_t[1] - run.trace_t[0], spans)
+        run.trace = progtrace.reduce_trace(prof, run.trace_t[0], run.trace_t[1] - run.trace_t[0], spans)
     run.timer_stats = run.out.pop("timer_stats")
     run.memory_peak_bytes = run.out.pop("memory_peak_bytes")
     return run
@@ -372,7 +414,7 @@ def closed_loop(cfg_file: dict, traffic: dict, stream, seed: int, seconds: float
 # ---------------------------------------------------------------------------
 
 
-def _collect(run: Run, pipe, stream, spans: probe.Spans, rejections: Rejections):
+def _collect(run: Run, pipe, stream, spans: probe.Spans, rejections: Rejections, snaps: list):
     if pipe.device.type == "cuda":
         torch.cuda.synchronize()
         peak = int(torch.cuda.max_memory_allocated())
@@ -390,6 +432,7 @@ def _collect(run: Run, pipe, stream, spans: probe.Spans, rejections: Rejections)
     solves = [c for c in spans.calls.get("solve", []) if c[2]["out"] is not None]
     last = solves[-1] if solves else None
     scores = list(pipe.score_history)  # drains the last detections, so their candidates are recorded
+    run.program = {"spans": progtrace.spans_as_dicts(pipe.timer.export()), "snapshots": snaps}
     run.out = {
         "memory_peak_bytes": peak,
         "timer_stats": pipe.timer.stats(),

@@ -1,12 +1,21 @@
-"""The yardstick's arithmetic against hand-worked numbers."""
+"""The yardstick's arithmetic, and the flagship net module's FLOP rule and
+width, against hand-worked numbers."""
 
+import json
 import math
 
 import pytest
 
+from portbench import nets
 from portbench import yardstick as Y
-from portbench.reference.descriptor import weight_shapes
-from portbench.check import ARTIFACT
+from portbench.run import PB, ROOT
+
+
+def flagship():
+    """The net module and weights of the listed configuration."""
+    cfg = json.loads((PB / "configs" / "bench_e2e_top3.json").read_text())
+    net = nets.load(cfg["net"])
+    return net, net.weights_dir(cfg, PB / "_cache")
 
 
 def test_percentile_nearest_rank():
@@ -53,7 +62,8 @@ def test_candidates_of_keyframes_outside_the_window_are_not_counted():
 
 
 def test_describe_flops_hand_worked():
-    shapes = weight_shapes(str(ARTIFACT))
+    net, weights = flagship()
+    assert weights == ROOT / "artifacts" / "descriptor_ported"
     # 240x320 -> conv1 s2 (120x160x32, 3x3x3) -> blocks 1..7 (stride 2 at dw 2, 4, 6)
     hand = 2 * 120 * 160 * 32 * 27
     for (h, w), c_in, c_out in [((120, 160), 32, 64), ((60, 80), 64, 128), ((60, 80), 128, 128),
@@ -61,12 +71,13 @@ def test_describe_flops_hand_worked():
                                 ((15, 20), 512, 512)]:
         hand += 2 * h * w * c_in * 9 + 2 * h * w * c_in * c_out
     hand += 2 * 300 * 512 * 16 * 2  # NetVLAD assignment and aggregation
-    assert Y.describe_flops(shapes, (240, 320)) == hand
+    assert net.describe_flops(weights, (240, 320)) == hand
     assert 0.85e9 < hand < 0.9e9  # 0.87 GFLOP a frame
+    assert net.width(weights) == 16 * 512
 
 
 def test_describe_flops_at_the_euroc_rig():
-    shapes = weight_shapes(str(ARTIFACT))
+    net, weights = flagship()
     # 480x752 -> conv1 s2 240x376 -> /4 120x188 -> /8 60x94 -> /16 30x47
     hand = 2 * 240 * 376 * 32 * 27
     for (h, w), c_in, c_out in [((240, 376), 32, 64), ((120, 188), 64, 128), ((120, 188), 128, 128),
@@ -74,7 +85,8 @@ def test_describe_flops_at_the_euroc_rig():
                                 ((30, 47), 512, 512)]:
         hand += 2 * h * w * c_in * 9 + 2 * h * w * c_in * c_out
     hand += 2 * 30 * 47 * 512 * 16 * 2
-    assert Y.describe_flops(shapes, (480, 752)) == hand
+    assert net.describe_flops(weights, (480, 752)) == hand
+    assert 4.0e9 < hand < 4.2e9  # the 4.09 GFLOP a frame that step_mfu counts
 
 
 def test_search_bound_counts_the_filled_rows():

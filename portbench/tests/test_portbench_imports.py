@@ -12,11 +12,14 @@ PROBE = """
 import sys
 import portbench.run, portbench.system, portbench.check, portbench.readers, portbench.probe
 import portbench.route, portbench.world, portbench.yardstick, portbench.__main__
-from portbench.reference import descriptor, judge, posegraph
-from portbench import readers
+from portbench.reference import judge, posegraph
+from portbench import nets, readers
 import json, pathlib
 for m in json.loads(pathlib.Path("BENCHMARK.json").read_text())["per_layer"]:
     readers.load(m["name"])
+for p in pathlib.Path("portbench/nets").glob("*.py"):
+    if p.stem != "__init__":
+        nets.load(p.stem)
 import cerebro_tpu_torch.runtime, cerebro_tpu_torch.ops.similarity, cerebro_tpu_torch.ops.stereo_kernel
 print(" ".join(sorted({m.split(".")[0] for m in sys.modules})))
 """

@@ -7,7 +7,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import readers, run
+from portbench import nets, readers, run
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -59,6 +59,17 @@ def test_config_file_names_its_cuts(config):
     assert sorted(c["reduced"]) == sorted(f["reduced"]) and c["source"] == f["source"]
     # the frames the rig renders are the frames the net describes
     assert f["rig"]["image_hw"] == f["cerebro_config"]["descriptor"]["image_hw"]
+
+
+@pytest.mark.parametrize("path", sorted((run.PB / "configs").glob("*.json")), ids=lambda p: p.stem)
+def test_config_names_a_net_that_has_a_module(path):
+    # the unlisted live configuration too
+    f = json.loads(path.read_text())
+    net = nets.load(f["net"])
+    assert net.__file__ == str(nets.NETS / f"{f['net']}.py")
+    weights = net.weights_dir(f, run.PB / "_cache")
+    assert (weights / "params.npz").is_file()
+    assert net.width(weights) > 0 and net.describe_flops(weights, f["rig"]["image_hw"]) > 0
 
 
 def test_per_layer_metrics_only_where_their_end_to_end_metric_is():

@@ -134,9 +134,9 @@ def hand_run():
     t0 = {"optimize": {"total_s": 4.0, "count": 1}, "solve.cg": {"total_s": 2.0, "count": 25},
           "drain": {"total_s": 0.3, "count": 3}}
     c1 = {"solve.cg_iters": 40, "edges.accepted": 3, "rejected.ransac": 4,
-          "detections.read_back": 3}
+          "detections.read_back": 3, "pairs.verified.tier1": 5}
     c2 = {"solve.cg_iters": 440, "edges.accepted": 5, "rejected.ransac": 6, "rejected.consistency": 1,
-          "detections.read_back": 7}
+          "detections.read_back": 7, "pairs.verified.tier1": 8, "pairs.verified.tier2": 2}
     t2 = {"optimize": {"total_s": 12.0, "count": 3}, "solve.cg": {"total_s": 6.0, "count": 75},
           "drain": {"total_s": 0.7, "count": 7}}
     run.program = {"spans": [span, group],
@@ -148,12 +148,12 @@ def hand_run():
 
 
 @pytest.mark.parametrize("metric, want", [
-    # in the slice: 2 launches under verify spans over the pairs decided
-    # from the snapshot at 101.5 (3 + 4 = 7) to the one at 104 (5 + 6 + 1)
+    # in the slice: 2 launches under verify spans over the passes verified
+    # from the snapshot at 101.5 (tier 1: 5) to the one at 104 (8 + 2)
     ("verify_launches_per_pair.relocalize", 2 / 5),
-    # their union 1.0-1.3 s over the top-level verify span's 1 s
-    ("verify_device_share.relocalize", 30.0),
-    # the window: snapshots at 99 and 104: 400 iterations over 2 solves
+    # their union 1.0-1.3 s over the verify span's 0.8 s
+    ("verify_device_share.relocalize", 100.0 * 0.3 / 0.8),
+    # the window: snapshots at 99 and 120: 400 iterations over 2 solves
     ("solve_cg_iters", 200.0),
     ("solve_ms_per_cg_iter", 1e3 * 4.0 / 400),
     ("drain_ms_per_batch.relocalize", 1e3 * 0.4 / 4),
@@ -168,3 +168,76 @@ def test_reader_reads_nothing_from_a_run_without_the_program_tracer(metric):
     del ctx.run.program
     ctx.run.trace = {"device_events": ctx.run.trace["device_events"]}  # probe.reduce_trace's keys
     assert readers.load(metric).read(ctx) is None
+
+
+def test_delta_takes_the_nearest_snapshots_that_hold_the_interval():
+    run = Run()
+    run.program = {"spans": [], "snapshots": [(1.0, {"n": 1}, {}), (2.0, {"n": 3}, {}), (3.0, {"n": 6}, {})]}
+    assert progtrace.delta(run, 1.5, 2.5)[0] == {"n": 5}  # from 1.0 to 3.0
+    assert progtrace.delta(run, 2.0, 2.0)[0] == {"n": 0}
+    assert progtrace.delta(run, 0.5, 2.0) is None  # nothing taken before the start
+    assert progtrace.delta(run, 1.0, 3.5) is None  # nothing taken after the end
+
+
+def test_program_launches_in_the_slice_with_their_shapes():
+    ctx = hand_run()
+    k3 = lambda t0, shape: {"name": "kernel.stereo_bm_launch", "t0": t0, "t1": t0 + 1e-4, "id": 9,
+                             "parent": 2, "attrs": {"shape": shape}}
+    ctx.run.program["spans"] += [k3(101.0, (4, 480, 752, 64, 21)), k3(102.7, (4, 480, 752, 64, 21)),
+                                 k3(103.1, (2, 480, 752, 64, 21)), k3(104.5, (4, 480, 752, 64, 21))]
+    got = readers.program_launches(ctx)
+    assert got == {"stereo_bm_launch": [(4, 480, 752, 64, 21), (2, 480, 752, 64, 21)]}
+    # a roofline over the program's launches: the mean bound over the mean device time a call
+    ctx.run.trace["device_events"] = [(1.0, 1.0 + 2e-3, "stereo_bm_kernel"),
+                                      (1.1, 1.1 + 1e-3, "stereo_bm_kernel")]
+    share = readers.launches_roofline(ctx, [s[:4] for s in got["stereo_bm_launch"]], ("stereo_bm_kernel",),
+                                      readers.k3_bound)
+    want = 100.0 * (readers.k3_bound(4, 480, 752, 64) + readers.k3_bound(2, 480, 752, 64)) / 2 / 1.5e-3
+    assert share == pytest.approx(want)
+    del ctx.run.program
+    assert readers.program_launches(ctx) == {}
+
+
+@pytest.mark.parametrize("trace", [0, 1])
+def test_rehearsal_holds_the_program_over_the_window(trace, monkeypatch, capsys):
+    """A small CPU run of the relocalize cell: the program's snapshots are
+    taken at the window's ends (and the slice's, traced), its spans only
+    where the run is traced, and the program's readers read them."""
+    import json
+
+    import torch
+
+    from portbench import run as run_mod
+    from portbench import system
+    from portbench.tests.test_portbench_faults import small_config, small_relocalize
+
+    torch.set_num_threads(4)
+    runs = []
+    real = system.closed_loop
+    monkeypatch.setattr(system, "closed_loop", lambda *a, **k: runs.append(real(*a, **k)) or runs[-1])
+    rc = run_mod.main(["--workload", "bench_e2e_top3.relocalize", "--seed", "4294967311", "--seconds", "0.1",
+                       "--trace", str(trace)], device="cpu", traffic_override=small_relocalize,
+                      config_override=small_config)
+    assert rc == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    r = runs[0]
+    times = [s[0] for s in r.program["snapshots"]]
+    assert times == sorted(times) and r.window_t0 in times and r.window_t1 in times
+    counters, totals = progtrace.delta(r, r.window_t0, r.window_t1)
+    # the window's keyframes, each described once, and its solves
+    assert counters["keyframes.described"] == r.keyframes_done > 0
+    assert totals["optimize"][1] == r.notes["rounds"]
+    spans = r.program["spans"]
+    if not trace:
+        assert spans == [] and r.trace is None
+        return
+    # the slice's start snapshot is taken just before the profiler starts
+    before = [t for t in times if t <= r.trace_t[0]]
+    assert r.trace_t[1] in times and before and r.trace_t[0] - before[-1] < 1.0
+    assert progtrace.delta(r, *r.trace_t) is not None
+    inside = [s for s in spans if r.window_t0 <= s["t0"] and s["t1"] <= r.window_t1]
+    assert {"describe", "detect", "drain", "solve", "solve.cg"} <= {s["name"] for s in inside}
+    cg = sum(s["attrs"]["iters"] for s in inside if s["name"] == "solve.cg")
+    assert line["metrics"]["solve_cg_iters"]["value"] == cg / r.notes["rounds"] == \
+        counters["solve.cg_iters"] / r.notes["rounds"]
+    assert "drain_ms_per_batch.relocalize" in line["metrics"]

@@ -1,16 +1,15 @@
 """The benchmark's arithmetic: percentiles, the published H100 peaks, and the
-operations and bytes of the describe net and the kernels, all from shapes.
+operations and bytes of the kernels, all from shapes (each describe net's
+FLOP rule is its module's, ``portbench/nets/``).
 
 Frozen here so that a change to the system cannot move the yardstick. The
-kernel counts follow the bring-up smoke run's (``k3_ops``, ``bound``) and
-``forward_flops``'s rule: multiply-adds x 2 of every convolution and of
-NetVLAD's two products.
+kernel counts follow the bring-up smoke run's (``k3_ops``, ``bound``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Sequence
+from typing import Optional, Sequence
 
 # NVIDIA H100 SXM data sheet, dense rates, at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -69,42 +68,6 @@ def decision_latencies(candidates, frame_of, keyframes: set, due: dict, decided_
             t = decided_at.get((curr, prev), float("inf"))
             out.append((min(t, window_end) - due[f]) * 1e3)
     return sorted(out)
-
-
-# ---------------------------------------------------------------------------
-# Describe: MobileNetV1 (alpha = 1) cut after conv_pw_<last>, then NetVLAD
-# ---------------------------------------------------------------------------
-
-STRIDE2_DW = (2, 4, 6, 12)  # Keras MobileNetV1's stride-2 depthwise blocks
-
-
-def _out(n: int, stride: int) -> int:
-    # stride 2: Keras' (0, 1) zero padding then a valid 3x3; stride 1: SAME
-    return (n + 1 - 3) // 2 + 1 if stride == 2 else n
-
-
-def describe_flops(shapes: dict, hw: Iterable[int]) -> float:
-    """FLOPs of one frame through the net whose weight shapes are ``shapes``
-    (name -> HWIO kernel shape, as in the weights artifact): each
-    convolution's output elements x input channels per group x kernel area
-    x 2, and NetVLAD's assignment (positions x C x K x 2) and aggregation
-    (K x positions x C x 2)."""
-    h, w = hw
-    kh, kw, cin, cout = shapes["conv1/kernel"]
-    h, w = _out(h, 2), _out(w, 2)
-    total = 2.0 * h * w * cout * cin * kh * kw
-    blocks = sorted(int(k[len("conv_dw_"):].split("/")[0])
-                    for k in shapes if k.startswith("conv_dw_") and k.endswith("/kernel"))
-    for i in blocks:
-        kh, kw, _, c = shapes[f"conv_dw_{i}/kernel"]
-        s = 2 if i in STRIDE2_DW else 1
-        h, w = _out(h, s), _out(w, s)
-        total += 2.0 * h * w * c * kh * kw
-        _, _, cin, cout = shapes[f"conv_pw_{i}/kernel"]
-        total += 2.0 * h * w * cout * cin
-    C, K = shapes["vlad/assign_w"]
-    total += 2.0 * h * w * C * K + 2.0 * K * h * w * C
-    return total
 
 
 # ---------------------------------------------------------------------------
