@@ -47,12 +47,13 @@ def desc_gap(stored: np.ndarray, ref: np.ndarray) -> float:
 
 def cand_gap(ref_desc: np.ndarray, cands: list, k: int, threshold: float, exclusion: int) -> float:
     """``ref_desc`` (gids, D) rows in DB order; ``cands`` [(query gid, hit gid)]."""
+    ref = ref_desc.astype(np.float64)  # once: a survey raises thousands of candidates
     worst = 0.0
     for q, p in cands:
         lim = q - exclusion
         if p >= lim or p < 0:
             return float("inf")
-        s = ref_desc[:lim].astype(np.float64) @ ref_desc[q].astype(np.float64)
+        s = ref[:lim] @ ref[q]
         kth = np.partition(s, len(s) - k)[len(s) - k] if len(s) >= k else -np.inf
         worst = max(worst, kth - s[p], threshold - s[p])
     return float(worst)

@@ -1,18 +1,23 @@
 """The one route generator: a traffic file's segments and a seed -> a stream.
 
-A traffic file (``portbench/traffic/<mix>.json``) names circular tracks over
-the photo world and a list of segments flown on them:
+A traffic file (``portbench/traffic/<mix>.json``) names tracks over the
+photo world and a list of segments flown on them:
 
     "tracks": {"main": {"radius_m": 14.0, "lap_s": 15.0}, ...}
     "segments": [{"track": "main", "s": 15.0, "part": "prefill"},
                  {"repeat": 8, "segments": [...]}, ...]
 
-A track may keep to an arc of its circle (``"start"`` and ``"arc"``, as
-fractions of a lap): flying on past the arc's end starts it over.
+A circular track may keep to an arc of its circle (``"start"`` and
+``"arc"``, as fractions of a lap): flying on past the arc's end starts it
+over. A spiral track, ``{"spiral": {"r0_m": R0, "pitch_m": P},
+"speed_m_s": V}``, is the outward Archimedean spiral r = R0 + P theta / 2 pi
+flown at the constant ground speed V from its inner end (its phase is the
+seconds flown along it): each ring lies one pitch outside the last, so a
+pitch wider than the footprint's diagonal never flies over seen ground.
 
 Time is stream time (``dt_s`` per frame). A segment flies its track for
 ``s`` seconds, each track keeping its own phase, so a track flown again
-later revisits the ground it covered; a ``"kidnap": {"frames": F,
+later revisits the ground it covered; on a circle, a ``"kidnap": {"frames": F,
 "jump_laps": J}`` entry jumps the track's phase by J laps, and its F frames
 carry no pose, 4 tracked features and no keyframe flag; the odometry then
 restarts in a new world frame, as a VIO front end does after a reset.
@@ -78,8 +83,11 @@ def generate(traffic: dict, seed: int) -> Stream:
     for seg in _flatten(traffic["segments"]):
         name = seg["track"]
         t = tracks[name]
-        step = dt / float(t["lap_s"])
+        spiral = "spiral" in t
+        step = dt if spiral else dt / float(t["lap_s"])
         if "kidnap" in seg:
+            if spiral:
+                raise ValueError(f"track {name!r} is a spiral: a kidnap jumps laps of a circle")
             phase[name] += float(seg["kidnap"]["jump_laps"])
             n = int(seg["kidnap"]["frames"])
             lost = True
@@ -88,9 +96,14 @@ def generate(traffic: dict, seed: int) -> Stream:
             lost = False
         arc = float(t.get("arc", 1.0))
         for _ in range(n):
-            th = 2 * np.pi * (turn + float(t.get("start", 0.0)) + np.mod(phase[name], arc))
-            xs.append(float(t["radius_m"]) * np.cos(th))
-            ys.append(float(t["radius_m"]) * np.sin(th))
+            if spiral:
+                x, y = _spiral_xy(t, turn, phase[name])
+                xs.append(x)
+                ys.append(y)
+            else:
+                th = 2 * np.pi * (turn + float(t.get("start", 0.0)) + np.mod(phase[name], arc))
+                xs.append(float(t["radius_m"]) * np.cos(th))
+                ys.append(float(t["radius_m"]) * np.sin(th))
             pose.append(not lost)
             tracked.append(4 if lost else 120)
             kf.append((not lost) and frame % kf_every == 0)
@@ -111,6 +124,28 @@ def generate(traffic: dict, seed: int) -> Stream:
         world=world, stamps=1.0 + dt * np.arange(N), part=np.asarray(part, object),
         track=np.asarray(trk, object),
     )
+
+
+def _spiral_xy(track: dict, turn: float, flown_s: float) -> Tuple[float, float]:
+    """The point of a spiral track ``flown_s`` seconds from its inner end.
+    With b = pitch / 2 pi and r = b phi, the arc length from the centre is
+    (b / 2)(phi sqrt(1 + phi^2) + asinh phi); Newton's method finds the phi
+    whose length past the inner end's is the distance flown."""
+    b = float(track["spiral"]["pitch_m"]) / (2 * np.pi)
+    phi0 = float(track["spiral"]["r0_m"]) / b
+
+    def length(phi):
+        return 0.5 * b * (phi * np.sqrt(1.0 + phi * phi) + np.arcsinh(phi))
+
+    s = float(track["speed_m_s"]) * flown_s + length(phi0)
+    phi = np.sqrt(2.0 * s / b)  # from the length's leading term, b phi^2 / 2
+    for _ in range(50):
+        d = (length(phi) - s) / (b * np.sqrt(1.0 + phi * phi))
+        phi -= d
+        if abs(d) < 1e-12 * phi:
+            break
+    th = 2 * np.pi * turn + (phi - phi0)
+    return b * phi * np.cos(th), b * phi * np.sin(th)
 
 
 def _odometry(gt: np.ndarray, has_pose: np.ndarray, rng, yaw_drift: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -155,3 +190,28 @@ def revisit_truth(stream: Stream, exclusion: int = 50, min_dt: float = 10.0,
         if len(js):
             out[i] = bool((np.linalg.norm(stream.xy[js] - stream.xy[i], axis=1) < radius_m).any())
     return out
+
+
+def check_first_visit(stream: Stream, frames, exclusion: int, footprint: tuple):
+    """Refuse a first-visit mix where a keyframe among ``frames`` sees
+    ground that a keyframe more than ``exclusion`` keyframes before it saw.
+    ``footprint`` is the ground both cameras see, (x_min, x_max, y_min,
+    y_max) from the camera; the rig never turns, so two footprints overlap
+    where the positions lie closer than its width along x and its depth
+    along y."""
+    span = np.array([footprint[1] - footprint[0], footprint[3] - footprint[2]])
+    kf = np.nonzero(stream.is_keyframe)[0]
+    order = {int(f): n for n, f in enumerate(kf)}
+    xy = stream.xy[kf].astype(np.float64)
+    for f in (int(f) for f in frames if stream.is_keyframe[f]):
+        n = order[f]
+        if n <= exclusion:
+            continue
+        d = np.abs(xy[: n - exclusion] - xy[n])
+        seen = np.nonzero((d < span).all(axis=1))[0]
+        if len(seen):
+            j = int(seen[-1])
+            raise ValueError(f"a first-visit mix sees ground twice: keyframe {f} lies {d[j, 0]:.2f} m along x "
+                             f"and {d[j, 1]:.2f} m along y from keyframe {int(kf[j])}, {n - j} keyframes "
+                             f"before it, so their {span[0]:.2f} x {span[1]:.2f} m footprints overlap "
+                             f"(beyond {exclusion} keyframes)")

@@ -166,8 +166,11 @@ def main(argv=None, t_process: float | None = None, device=None, traffic_overrid
         dev["busy_s"] = run.trace["busy_s"]
         dev["window_s"] = run.trace["window_s"]
         line["breakdown"] = {"device_ops": run.trace["device_ops"], "idle_gaps": run.trace["idle_gaps"]}
+    stages = progtrace.delta(run, run.window_t0, run.window_t1)
     line["notes"] = {"window_s": run.window_s, "setup_detail": run.notes,
-                     "samples": {"decisions": len(run.decision_ms), "keyframes": len(run.keyframe_ms)}}
+                     "samples": {"decisions": len(run.decision_ms), "keyframes": len(run.keyframe_ms)},
+                     # the program's host seconds and calls by stage in the window (its totals())
+                     "window_stages": stages[1] if stages is not None else None}
     if args.trace and run.trace is not None:
         line["notes"]["device_by_span"] = run.trace.get("device_by_span")
         ev = run.trace["device_events"]
@@ -195,6 +198,12 @@ def _plain(x):
     raise TypeError(type(x))
 
 
+def _quartiles(values: list) -> list:
+    import numpy as np
+
+    return [float(v) for v in np.quantile(values, [0.25, 0.5, 0.75])] if len(values) else []
+
+
 def sanity(run, stream, cell: dict):
     """Candidate precision and recall and edge precision on an earlier
     stderr line: properties of the algorithm, not metrics. The system's
@@ -219,6 +228,13 @@ def sanity(run, stream, cell: dict):
         "candidate_recall": len(found) / max(int(truth.sum()), 1),
         "edges": len(edges), "edge_precision": right / max(len(edges), 1),
         "rejected": run.out["rejected_total"],
+        # how far apart the candidates' places lie (m), and the rank-0 scores the system
+        # logged against Method A's threshold: ground that looks alike far apart is aliasing
+        "candidate_dist_m_q": _quartiles([math.dist(stream.xy[a], stream.xy[b]) for a, b in pairs
+                                          if a >= 0 and b >= 0]),
+        "rank0_score_q": _quartiles([s for s in run.out["scores"] if s > -1.0]),
+        "rank0_over_threshold": int(sum(s >= float(run.out["loop_cfg"].dot_threshold)
+                                        for s in run.out["scores"])),
         "system_record_top3_photo": {"candidate_precision": 0.991, "candidate_recall": 0.937,
                                      "edge_precision": 1.0},
     }), file=sys.stderr)

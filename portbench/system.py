@@ -4,7 +4,8 @@ This is the only module of the benchmark that imports the system
 (``cerebro_tpu_torch``). ``open_loop`` feeds ``CerebroService``'s push API
 from a producer thread on the stream's due schedule; ``closed_loop`` drives
 ``CerebroPipeline`` offline (``ingest_frame`` in batches, ``verify_pending``
-after each, ``optimize_trajectory`` every ``solve_every_batches``). Both
+after each, ``optimize_trajectory`` every ``solve_every_batches``, or, at 0,
+nowhere in the window). Both
 return a ``Run``: the timings the end-to-end and per-layer readers take, and
 the system's outputs that the judge compares with the reference.
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from portbench import probe, progtrace
+from portbench import route as R
 from portbench import world as W
 from portbench import yardstick as Y
 
@@ -168,6 +170,7 @@ class Rejections:
 
 def _frames(stream, device, world_params, rig: dict, n_frames: Optional[int] = None):
     """The stream's first ``n_frames`` stereo pairs (all without it)."""
+    W.check_period(stream.xy[:n_frames], world_params, rig)
     tex, mask, tex_m, built = W.load_world(world_params)
     ren = W.Renderer(tex, mask, tex_m, device, rig)
     left, right = ren.stereo_frames(stream.xy[:n_frames])
@@ -184,6 +187,15 @@ def _check_capacity(cfg_file: dict, stream, n_frames: int):
         raise ValueError(f"the traffic writes up to {n_kf} keyframes, the DB holds {cap}")
 
 
+def _check_first_visit(cfg_file: dict, traffic: dict, stream, frames):
+    """A ``first_visit`` mix's ``frames`` see no ground that a keyframe
+    beyond the detector's exclusion window saw: no two footprints, both
+    cameras', overlap."""
+    if traffic.get("first_visit"):
+        exclusion = make_config(cfg_file["cerebro_config"]).loop.exclusion_window
+        R.check_first_visit(stream, frames, exclusion, W.union_footprint(cfg_file["rig"]))
+
+
 # ---------------------------------------------------------------------------
 # Open loop: the live node at camera rate
 # ---------------------------------------------------------------------------
@@ -195,6 +207,7 @@ def open_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, seconds
 
     run = Run()
     _check_capacity(cfg_file, stream, len(stream.xy))
+    _check_first_visit(cfg_file, traffic, stream, stream.index("window"))
     left, right, built = _frames(stream, device, traffic["world"], cfg_file["rig"])
     run.notes["world_built"] = built
     pipe = make_pipeline(cfg_file, weights, seed, device)
@@ -326,11 +339,14 @@ def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, secon
     """The window is a fixed amount of work: whole rounds of
     ``solve_every_batches`` batches of keyframes, each batch verified, each
     round ended by a solve; the fewest whole rounds that fill ``seconds``
-    at the traffic's ``nominal_keyframes_per_s`` (the parent's rate)."""
+    at the traffic's ``nominal_keyframes_per_s`` (the parent's rate).
+    ``solve_every_batches`` 0 solves nowhere in the window: a round is then
+    one batch. A ``first_visit`` mix is refused where its window would see
+    ground twice (``route.check_first_visit``)."""
     run = Run()
     B = int(cfg_file["cerebro_config"]["runtime"]["descriptor_batch"])
     solve_every = int(traffic["solve_every_batches"])
-    per_round = B * solve_every
+    per_round = B * max(solve_every, 1)
     rounds = max(1, math.ceil(seconds * float(traffic["nominal_keyframes_per_s"]) / per_round))
     win_all = stream.index("window")
     kf_win = win_all[stream.is_keyframe[win_all]]
@@ -340,6 +356,7 @@ def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, secon
     last = int(kf_win[rounds * per_round - 1])
     win = [int(i) for i in win_all if i <= last]
     _check_capacity(cfg_file, stream, last + 1)
+    _check_first_visit(cfg_file, traffic, stream, win)
     left, right, built = _frames(stream, device, traffic["world"], cfg_file["rig"], last + 1)
     run.notes["world_built"] = built
     pipe = make_pipeline(cfg_file, weights, seed, device)
@@ -374,7 +391,7 @@ def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, secon
     prof = None
     pos = 0
     for _ in range(rounds):
-        for _ in range(solve_every):
+        for _ in range(max(solve_every, 1)):
             kf = 0
             while kf < B:
                 i = win[pos]
@@ -389,7 +406,8 @@ def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, secon
                 run.trace_t = (t_mark, None)
             elif prof is not None and run.trace_t[1] is None and now >= t_trace[0] + t_trace[1]:
                 _stop_profiler(prof, run, pipe, snaps)
-        pipe.optimize_trajectory()
+        if solve_every:
+            pipe.optimize_trajectory()
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     snaps.append(snapshot(pipe))
@@ -399,6 +417,7 @@ def closed_loop(cfg_file: dict, weights, traffic: dict, stream, seed: int, secon
     run.keyframes_done = rounds * per_round
     run.attempted = run.keyframes_done
     run.notes["rounds"] = rounds
+    run.notes["solves_in_window"] = len(spans.between("solve", run.window_t0, run.window_t1))
     run.notes["window_frames_used"] = pos
     _collect(run, pipe, stream, spans, rejections, snaps)
     run.out["left"] = left
